@@ -1,0 +1,86 @@
+"""State carried across from the JAX package.
+
+The port imports nothing of the JAX package, so a batch crosses over as
+plain numpy: the caller turns each JAX array into ``numpy`` (the tests do
+``np.asarray(jax_array)``) and these functions build the port's own
+:class:`PointBatch` — with the port's own :class:`PointSchema`, found by
+attribute name — and go back.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .buffers.device import PointBatch
+from .layout import attributes as att
+from .layout.dtypes import DevicePolicy, carrier_np_dtype
+from .layout.schema import PointSchema
+
+__all__ = ["batch_from_reference_arrays", "batch_to_reference_arrays",
+           "affine_from_reference"]
+
+_BUILTIN = {a.name: a for a in att.BUILTIN_ATTRIBUTES}
+
+
+def _schema_of(attribute_names: Sequence[str]) -> PointSchema:
+    missing = [n for n in attribute_names if n not in _BUILTIN]
+    if missing:
+        raise KeyError(f"no builtin attribute named {missing}")
+    return PointSchema.from_attributes([_BUILTIN[n] for n in attribute_names])
+
+
+def batch_from_reference_arrays(
+        columns: Mapping[str, np.ndarray], count: int,
+        attribute_names: Sequence[str],
+        meta: Optional[Mapping[str, np.ndarray]] = None,
+        device: Optional[Union[str, torch.device]] = None,
+        policy: DevicePolicy = DevicePolicy.NARROW) -> PointBatch:
+    """The port's batch from the numpy arrays of a JAX ``PointBatch``:
+    ``columns`` in the JAX batch's device dtypes (a u16 column as uint16, a
+    u32 word as uint32), ``count`` its valid rows, ``attribute_names`` the
+    names of its schema in order.  ``device=None`` means the GPU."""
+    dev = resolve_device(device)
+    data = {}
+    for name, col in columns.items():
+        col = np.asarray(col)
+        host = np.ascontiguousarray(col.astype(carrier_np_dtype(col.dtype)))
+        data[name] = torch.from_numpy(host).to(dev)
+    meta_t = {k: torch.from_numpy(np.ascontiguousarray(np.asarray(v))).to(dev)
+              for k, v in (meta or {}).items()}
+    return PointBatch(data, torch.tensor(int(count), dtype=torch.int32,
+                                         device=dev),
+                      _schema_of(attribute_names), meta_t, policy)
+
+
+def batch_to_reference_arrays(batch: PointBatch
+                              ) -> Tuple[Dict[str, np.ndarray], int,
+                                         Tuple[str, ...],
+                                         Dict[str, np.ndarray]]:
+    """``(columns, count, attribute_names, meta)`` as numpy, each column
+    back in its logical device dtype — what ``jnp.asarray`` needs to
+    rebuild the JAX batch."""
+    cols = {}
+    for name, t in batch.data.items():
+        arr = t.detach().cpu().numpy()
+        with np.errstate(over="ignore"):
+            cols[name] = arr.astype(batch.logical_dtype(name))
+    meta = {k: v.detach().cpu().numpy() for k, v in batch.meta.items()}
+    return cols, int(batch.count.item()), batch.schema.names, meta
+
+
+def affine_from_reference(scale, rot, trans, coeffs,
+                          device: Optional[Union[str, torch.device]] = None):
+    """``local_affine=(scale, rot, trans, coeffs)`` of the JAX package as
+    tensors for the port (f32, f32, f32, int32)."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+
+    return (f32(scale).reshape(3), f32(rot).reshape(3, 3),
+            f32(trans).reshape(3),
+            torch.from_numpy(np.array(coeffs, dtype=np.int32)).to(dev))

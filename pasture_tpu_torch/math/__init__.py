@@ -1,0 +1,7 @@
+"""Math utilities (Morton coding)."""
+
+from .morton import (expand_bits_by_3, morton_decode_u32,
+                     morton_encode_dual32, morton_encode_u64, reverse_bits)
+
+__all__ = ["expand_bits_by_3", "reverse_bits", "morton_encode_u64",
+           "morton_encode_dual32", "morton_decode_u32"]

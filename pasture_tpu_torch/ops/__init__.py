@@ -1,0 +1,13 @@
+"""Device compute ops over :class:`~pasture_tpu_torch.buffers.PointBatch`.
+
+Plain functions on tensors that follow their inputs' device; the hand-written
+CUDA kernels live in :mod:`pasture_tpu_torch.ops.kernels`.
+"""
+
+from .compact import compact_columns  # noqa: F401
+from .convert import rust_as_cast_device, u32_bits, u32_carrier  # noqa: F401
+from .reductions import (  # noqa: F401
+    batch_bounds, masked_max, masked_min, masked_minmax)
+from .transform import (  # noqa: F401
+    affine_transform, decode_las_positions, transform_positions)
+from .voxel import voxel_downsample, voxel_indices  # noqa: F401

@@ -1,0 +1,256 @@
+"""Fused voxel reduction + compaction — the post-sort half of the voxel
+pipeline, exact-local form.
+
+Input: the tile-sorted operands of ops/voxel.py's fast path — Morton key,
+the packed secondary word (mode value in the top bits, narrow mean fields
+below), and the packed exact 10-bit residual word.  The sort runs per
+spatial tile, so no voxel spans a tile and every reduction is tile-local.
+
+Replaces: pasture_tpu/ops/kernels/voxel_reduce_kernel.py
+fused_sorted_voxel_reduce (_make_kernel with _seg_totals, _seg_max,
+_tiered_ladder, _compact10), exact-local form, together with the merge of
+per-block outputs that followed it there (ops/compact.py _merge_tiles).
+Bound on the H100: bytes — 12 B read per row + 16 B written per voxel.
+Design (``csrc/voxel_reduce.cu``): one block per sort tile holds the tile
+in shared memory; run-start flags and a block-wide scan rank each voxel in
+its tile; the thread owning a run start walks the run (a handful of
+points) accumulating exact integer sums and the run-length mode; rows are
+written at a global offset taken from an exclusive cumsum of the per-tile
+voxel counts that a first, key-only launch produced — the output is
+globally compacted in (tile, Morton) order with no merge pass.
+
+Integer sums are exact (int64); a mean is ``float32(sum) / float32(count)``.
+That equals the f32 running sum of the reference whenever the latter is
+exact (sums below 2**24).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ...math.morton import morton_decode_u32
+from ..convert import u32_bits, u32_carrier
+from . import _build
+from .fused_transform import _f32, _int_cell_base
+
+__all__ = ["fused_sorted_voxel_reduce", "fused_sorted_voxel_reduce_rows",
+           "fused_sorted_voxel_reduce_plain", "supports_fused_reduce",
+           "LAUNCHES", "MAX_TILE_LEN", "MAX_FIELDS"]
+
+#: launches of the kernel (count + write launches count as one)
+LAUNCHES = {"fused_sorted_voxel_reduce": 0}
+
+_INVALID = 0xFFFFFFFF
+MAX_TILE_LEN = 4096   # 3 streams x 4096 rows x 4 B = 48 KiB of shared memory
+MAX_FIELDS = 4
+
+
+def supports_fused_reduce(n: int, tile_len: int, n_fields: int = 0) -> bool:
+    """Static feasibility: whole tiles that fit one block's shared memory."""
+    return (n > 0 and 0 < tile_len <= MAX_TILE_LEN and n % tile_len == 0
+            and n < (1 << 31) and n_fields <= MAX_FIELDS)
+
+
+def _check_args(skey, tile_len, fields, qbits, spos, local_affine):
+    if spos is not None or local_affine is None:
+        raise NotImplementedError(
+            "fused_sorted_voxel_reduce: only the exact-local form "
+            "(local_affine=) is ported; the quantized and exact-f32 forms "
+            "come with the quantized-path slice")
+    if qbits != 10:
+        raise ValueError("the exact-local form needs qbits == 10")
+    if not supports_fused_reduce(skey.shape[0], tile_len, len(fields)):
+        raise ValueError(f"unsupported fused reduce: n={skey.shape[0]}, "
+                         f"tile_len={tile_len}, fields={len(fields)}")
+
+
+def _field_mask(width: int) -> int:
+    return (1 << width) - 1
+
+
+def segment_mode(values: torch.Tensor, run_start: torch.Tensor,
+                 seg: torch.Tensor, valid: torch.Tensor, n_out: int
+                 ) -> torch.Tensor:
+    """Run-length mode per segment of value-sorted rows: the value of the
+    longest run, ties to the smallest value.  ``run_start`` flags the first
+    row of each (segment, value) run, ``seg`` is each row's segment id
+    (rows that are not ``valid`` are ignored).  Returns int64 ``(n_out,)``
+    (zero where a segment id never occurs)."""
+    n = values.shape[0]
+    one = valid.to(torch.int64)
+    run_id = torch.cumsum(run_start.to(torch.int64), 0) - 1
+    run_id = torch.where(valid, run_id, torch.full_like(run_id, n))
+    run_len = torch.zeros(n + 1, dtype=torch.int64, device=values.device)
+    run_len.index_add_(0, run_id, one)
+    row_len = torch.where(valid, run_len[run_id], torch.zeros_like(one))
+    dump = torch.where(valid, seg, torch.full_like(seg, n_out))
+    best = torch.zeros(n_out + 1, dtype=torch.int64, device=values.device)
+    best.scatter_reduce_(0, dump, row_len, "amax", include_self=True)
+    is_best = valid & (row_len == best[dump])
+    big = torch.iinfo(torch.int64).max
+    mode = torch.full((n_out + 1,), big, dtype=torch.int64,
+                      device=values.device)
+    mode.scatter_reduce_(
+        0, torch.where(is_best, dump, torch.full_like(dump, n_out)),
+        values.to(torch.int64), "amin", include_self=True)
+    mode = mode[:n_out]
+    return torch.where(mode == big, torch.zeros_like(mode), mode)
+
+
+def fused_sorted_voxel_reduce_plain(
+        skey, sword, sqword, bounds_min, leaf_size, mode_bits: int,
+        fields: Sequence[Tuple[int, int, bool, int, int]], qbits: int,
+        qwindow: float, tile_len: int, semantics: str = "floor",
+        spos=None, local_affine=None):
+    """Plain PyTorch version of :func:`fused_sorted_voxel_reduce_rows`
+    (``out_word`` in carrier form)."""
+    _check_args(skey, tile_len, fields, qbits, spos, local_affine)
+    key = u32_carrier(skey)
+    word = u32_carrier(sword)
+    rword = u32_carrier(sqword)
+    dev = key.device
+    n = key.shape[0]
+    scale, rot, trans, coeffs = local_affine
+    scale = _f32(scale, dev).reshape(3)
+    rot = _f32(rot, dev).reshape(3, 3)
+    trans = _f32(trans, dev).reshape(3)
+    coef = torch.as_tensor(coeffs, device=dev).to(torch.int32)
+
+    valid = key != _INVALID
+    idx = torch.arange(n, device=dev)
+    differs = torch.ones(n, dtype=torch.bool, device=dev)
+    differs[1:] = key[1:] != key[:-1]
+    first = valid & (differs | (idx % tile_len == 0))
+    seg = torch.cumsum(first.to(torch.int64), 0) - 1
+    num_voxels = first.sum().to(torch.int32)
+    dump = torch.where(valid, seg, torch.full_like(seg, n))
+
+    def seg_sum(v):
+        out = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        out.index_add_(0, dump, torch.where(valid, v, torch.zeros_like(v)))
+        return out[:n]
+
+    cnt = torch.clamp(seg_sum(torch.ones_like(key)), min=1).to(torch.float32)
+    qmeans = [seg_sum((rword >> sh) & 1023).to(torch.float32) / cnt
+              for sh in (20, 10, 0)]
+
+    out_word = torch.zeros(n, dtype=torch.int64, device=dev)
+    if mode_bits:
+        mv = word >> (32 - mode_bits)
+        mdiff = torch.ones(n, dtype=torch.bool, device=dev)
+        mdiff[1:] = mv[1:] != mv[:-1]
+        mode = segment_mode(mv, first | (valid & mdiff), seg, valid, n)
+        out_word = mode << (32 - mode_bits)
+    for fsh, fw, fsigned, imin, imax in fields:
+        v = (word >> fsh) & _field_mask(fw)
+        if fsigned:
+            sb = 1 << (fw - 1)
+            v = (v ^ sb) - sb
+        t = torch.trunc(seg_sum(v).to(torch.float32) / cnt)
+        t = torch.clamp(t, float(imin), float(imax))
+        out_word = out_word | ((t.to(torch.int64) & _field_mask(fw)) << fsh)
+
+    # key of each voxel: its run's first row, moved to the voxel's slot
+    vkey = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    vkey.index_copy_(0, torch.where(first, seg, torch.full_like(seg, n)), key)
+    cells = [c.to(torch.int32) for c in morton_decode_u32(vkey[:n])]
+    ml = [(_int_cell_base(coef, *cells, a).to(torch.float32) + qmeans[a])
+          * scale[a] for a in range(3)]
+    pos = [rot[a, 0] * ml[0] + rot[a, 1] * ml[1] + rot[a, 2] * ml[2]
+           + trans[a] for a in range(3)]
+    live = idx < num_voxels
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    rows = torch.where(live[:, None], torch.stack(pos, dim=1), zero)
+    out_word = torch.where(live, out_word, torch.zeros_like(out_word))
+    return rows, out_word, num_voxels
+
+
+def fused_sorted_voxel_reduce_rows(
+        skey: torch.Tensor, sword: torch.Tensor, sqword: torch.Tensor,
+        bounds_min, leaf_size, mode_bits: int,
+        fields: Sequence[Tuple[int, int, bool, int, int]], qbits: int,
+        qwindow: float, tile_len: int, semantics: str = "floor",
+        spos: Optional[tuple] = None, local_affine: Optional[tuple] = None):
+    """All post-sort voxel work of the exact-local path.  ``skey``,
+    ``sword``, ``sqword`` are the tile-sorted u32 streams (either form);
+    ``fields`` lists the mean fields packed in ``sword`` below the top
+    ``mode_bits`` as ``(shift, width, signed, min, max)``;
+    ``local_affine=(scale, rot, trans, coeffs)`` with the SAME
+    ``exact_local_base_coeffs`` tensor the head used.  ``bounds_min``,
+    ``leaf_size``, ``qwindow`` and ``semantics`` belong to the forms that
+    are not ported yet and are not read.
+
+    Returns ``(pos, out_word, num_voxels)``: rows ``[0, num_voxels)`` of
+    the (N, 3) f32 ``pos`` and of ``out_word`` hold the voxels in (tile,
+    Morton) order, globally compacted; rows past ``num_voxels`` are zero.
+    ``num_voxels`` is a 0-d int32 tensor on the streams' device (no host
+    round trip).  On CUDA tensors the kernel runs and ``out_word`` is in
+    bits form (int32); on CPU tensors the plain version returns carrier
+    form."""
+    if not skey.is_cuda:
+        return fused_sorted_voxel_reduce_plain(
+            skey, sword, sqword, bounds_min, leaf_size, mode_bits, fields,
+            qbits, qwindow, tile_len, semantics, spos, local_affine)
+    _check_args(skey, tile_len, fields, qbits, spos, local_affine)
+    dev = skey.device
+    key = u32_bits(skey).contiguous()
+    word = u32_bits(sword).contiguous()
+    rword = u32_bits(sqword).contiguous()
+    n = key.shape[0]
+    if word.shape != key.shape or rword.shape != key.shape \
+            or word.device != dev or rword.device != dev:
+        raise ValueError("streams must be 1-D, of one length, on one device")
+    tiles = n // tile_len
+    scale, rot, trans, coeffs = local_affine
+    params = torch.cat([_f32(scale, dev).reshape(3),
+                        _f32(rot, dev).reshape(9),
+                        _f32(trans, dev).reshape(3)]).contiguous()
+    coef = torch.as_tensor(coeffs, device=dev).to(torch.int32).contiguous()
+    nf = len(fields)
+    f_ints = (ctypes.c_int * (3 * MAX_FIELDS))()
+    f_floats = (ctypes.c_float * (2 * MAX_FIELDS))()
+    for i, (fsh, fw, fsigned, imin, imax) in enumerate(fields):
+        f_ints[3 * i:3 * i + 3] = [int(fsh), int(fw), int(bool(fsigned))]
+        f_floats[2 * i:2 * i + 2] = [float(imin), float(imax)]
+
+    counts = torch.empty(tiles, dtype=torch.int32, device=dev)
+    pos = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    out_word = torch.zeros(n, dtype=torch.int32, device=dev)
+    lib = _build.library("voxel_reduce")
+    with torch.cuda.device(dev):
+        code = lib.voxel_reduce_count_launch(
+            key.data_ptr(), tiles, tile_len, counts.data_ptr(),
+            _build.stream())
+        _build.check(code, "fused_sorted_voxel_reduce (count)")
+        # tile offsets: an exclusive scan of 'tiles' integers
+        incl = torch.cumsum(counts, 0, dtype=torch.int32)
+        offsets = (incl - counts).contiguous()
+        code = lib.voxel_reduce_write_launch(
+            key.data_ptr(), word.data_ptr(), rword.data_ptr(), tiles,
+            tile_len, offsets.data_ptr(), params.data_ptr(),
+            coef.data_ptr(), int(mode_bits), nf,
+            ctypes.cast(f_ints, ctypes.c_void_p),
+            ctypes.cast(f_floats, ctypes.c_void_p),
+            pos.data_ptr(), out_word.data_ptr(), _build.stream())
+        _build.check(code, "fused_sorted_voxel_reduce (write)")
+    LAUNCHES["fused_sorted_voxel_reduce"] += 1
+    return pos, out_word, incl[-1]
+
+
+def fused_sorted_voxel_reduce(
+        skey: torch.Tensor, sword: torch.Tensor, sqword: torch.Tensor,
+        bounds_min, leaf_size, mode_bits: int,
+        fields: Sequence[Tuple[int, int, bool, int, int]], qbits: int,
+        qwindow: float, tile_len: int, semantics: str = "floor",
+        spos: Optional[tuple] = None, local_affine: Optional[tuple] = None):
+    """:func:`fused_sorted_voxel_reduce_rows` with the centroid as three
+    streams, the shape of the function it is ported from: returns ``(px,
+    py, pz, out_word, num_voxels)``, the three being column views of the
+    (N, 3) position tensor."""
+    pos, out_word, num_voxels = fused_sorted_voxel_reduce_rows(
+        skey, sword, sqword, bounds_min, leaf_size, mode_bits, fields, qbits,
+        qwindow, tile_len, semantics, spos, local_affine)
+    return pos[:, 0], pos[:, 1], pos[:, 2], out_word, num_voxels
