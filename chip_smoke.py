@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of pasture_tpu_torch: the exact transform + voxelize step.
+"""GPU smoke run of pasture_tpu_torch: the transform + voxelize steps and
+the filter -> voxel grid path.
 
 Run ``python3 chip_smoke.py`` on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit.  It
@@ -7,7 +8,7 @@ the CUDA toolkit.  It
 1. names the device (``device``),
 2. builds the package's CUDA kernels from ``ops/kernels/csrc`` (``build``),
 3. holds each kernel against its plain PyTorch version on the GPU at the
-   shapes of the main path — 4 194 304 points in 8192 tiles of 512 rows —
+   shapes of the paths below — 4 194 304 points in 8192 tiles of 512 rows —
    and times kernel, plain version and, where one exists, the single
    PyTorch call that computes the same function (``kernels``),
 4. drives the main path once through the package's public functions —
@@ -15,9 +16,22 @@ the CUDA toolkit.  It
    residual word -> tile sort -> per-voxel mean / mode / centroid, one
    compacted voxel batch — checks it against the package's generic
    plain-PyTorch path and an f64 numpy oracle, reads the kernels' launch
-   counts, and times the step (``main_path``).
+   counts, and times the step (``main_path``),
+5. drives three more paths the same way, each at the same 4 194 304 points,
+   each checked before it is timed, each with the launch counts set to 0
+   just before and read just after:
+   ``path_filter_grid`` — ``filter_batch`` (compaction kernel) ->
+   ``voxelgrid_filter`` (generic voxel path, 20-bit grid) ->
+   ``calculate_bounds`` / ``minmax_attribute``;
+   ``path_quantized`` — ``fused_voxel_head`` -> ``voxel_downsample(
+   precomputed=(keys, qword), position_quantization_bits=10)``, and the same
+   call without ``precomputed`` on a batch of f32 world positions;
+   ``path_exact_f32`` — ``fused_world_bounds`` ->
+   ``fused_decode_transform_key`` -> ``voxel_downsample(precomputed=(keys,
+   None))`` with the f32 positions riding a five-stream tile sort.
 
-``--profile`` adds a ``profile`` line: one step's GPU time by kernel name.
+``--profile`` adds a ``profile`` line per path: one step's GPU time by
+kernel name.
 
 Each phase prints one JSON line.  Nothing is caught: any failure raises and
 the process exits non-zero.  Without a CUDA device it raises at once; it
@@ -35,13 +49,17 @@ import time
 import numpy as np
 import torch
 
+from pasture_tpu_torch import algorithms
 from pasture_tpu_torch._device import resolve_device
 from pasture_tpu_torch.buffers.device import PointBatch
 from pasture_tpu_torch.layout import attributes as att
 from pasture_tpu_torch.layout.schema import PointSchema
-from pasture_tpu_torch.ops import u32_bits, u32_carrier, voxel_downsample
+from pasture_tpu_torch.math.morton import morton_encode_u64
+from pasture_tpu_torch.ops import (filter_batch, u32_bits, u32_carrier,
+                                   voxel_downsample, voxel_indices)
 from pasture_tpu_torch.ops import kernels
 from pasture_tpu_torch.ops.kernels import _build
+from pasture_tpu_torch.ops.kernels import compact_kernel as ck
 from pasture_tpu_torch.ops.kernels import fused_transform as ft
 from pasture_tpu_torch.ops.kernels import tile_sort_kernel as ts
 from pasture_tpu_torch.ops.kernels import voxel_reduce_kernel as vr
@@ -51,6 +69,9 @@ LEAF = 0.5
 ZTILES = 1024        # z-slabs, one leaf thick (the 10-bit grid's z capacity)
 XTILES = 8           # world-x stripes per slab, voxel-aligned
 LOCAL = "LASLocalPosition"
+POS, INT, CLS = (att.POSITION_3D.name, att.INTENSITY.name,
+                 att.CLASSIFICATION.name)
+QBITS = 10           # residual bits per axis of the quantized path
 
 _THETA = 0.25
 ROT = np.asarray([[np.cos(_THETA), -np.sin(_THETA), 0.0],
@@ -120,17 +141,25 @@ def affine_on(device):
                          device=device))
 
 
+def grid_anchor(batch: PointBatch, affine, shift: float = 0.0):
+    """World bounds of the step's points and the grid anchor made from them.
+    Returns ``(bmin, t)``, ``t`` the shifted translation."""
+    scale, rot, t = affine
+    t = t + shift
+    wmin, _ = kernels.fused_world_bounds(batch.data[LOCAL], scale, rot, t)
+    # grid anchored at leaf multiples in x (stripe boundaries stay
+    # voxel-aligned) and at the z-translation (z-slab boundaries ditto);
+    # the y anchor is data-driven
+    return torch.stack([torch.floor(wmin[0] / LEAF) * LEAF, wmin[1],
+                        t[2]]), t
+
+
 def pipeline_head(batch: PointBatch, affine, shift: float = 0.0):
     """Bounds, grid anchor, base coefficients, keys and residual words of
     one step.  Returns ``(bmin, keys, rword, local_affine)``."""
     local = batch.data[LOCAL]
-    scale, rot, t = affine
-    t = t + shift
-    wmin, _ = kernels.fused_world_bounds(local, scale, rot, t)
-    # grid anchored at leaf multiples in x (stripe boundaries stay
-    # voxel-aligned) and at the z-translation (z-slab boundaries ditto);
-    # the y anchor is data-driven
-    bmin = torch.stack([torch.floor(wmin[0] / LEAF) * LEAF, wmin[1], t[2]])
+    scale, rot, _ = affine
+    bmin, t = grid_anchor(batch, affine, shift)
     # the host copy of the scale serves the leaf-size check without
     # reading the device
     coeffs = kernels.exact_local_base_coeffs(SCALE, rot, t, bmin, LEAF,
@@ -145,10 +174,8 @@ def pipeline_voxelize(batch: PointBatch, head, tiles: int,
     """Voxelize the batch's attributes under the head's keys;
     ``fused=False`` is the package's generic plain-PyTorch path."""
     bmin, keys, rword, affine = head
-    data = {k: v for k, v in batch.data.items() if k != LOCAL}
-    b = PointBatch(data, batch.count, batch.schema, batch.meta, batch.policy)
-    return voxel_downsample(b, LEAF, bounds=(bmin, None), semantics="floor",
-                            grid_bits=10, sort_tiles=tiles,
+    return voxel_downsample(attribute_batch(batch), LEAF, bounds=(bmin, None),
+                            semantics="floor", grid_bits=10, sort_tiles=tiles,
                             precomputed=(keys, rword), local_affine=affine,
                             fused=fused)
 
@@ -158,6 +185,76 @@ def pipeline_batch(batch: PointBatch, affine, tiles: int,
     """One exact transform + voxelize step, returning the voxel batch."""
     return pipeline_voxelize(batch, pipeline_head(batch, affine, shift),
                              tiles)
+
+
+# ---- the three further paths ---------------------------------------------------
+
+def attribute_batch(batch: PointBatch, world=None) -> PointBatch:
+    """The batch without its local coordinates; with ``world`` as its f32
+    position column."""
+    data = {} if world is None else {POS: world}
+    data.update((k, v) for k, v in batch.data.items() if k != LOCAL)
+    return PointBatch(data, batch.count, batch.schema, batch.meta,
+                      batch.policy)
+
+
+def path_filter_grid(wbatch: PointBatch):
+    """Path A on a batch of f32 world positions: drop one class, voxelize
+    the rest on the generic 20-bit grid, and ask the result for its bounds
+    and its intensity range.  Returns ``(kept, voxels, bounds, minmax)``."""
+    kept = filter_batch(wbatch, lambda d: d[CLS] != 7)
+    voxels = algorithms.voxelgrid_filter(kept, LEAF)
+    return (kept, voxels, algorithms.calculate_bounds(voxels),
+            algorithms.minmax_attribute(voxels, att.INTENSITY))
+
+
+def quantized_head(batch: PointBatch, affine, shift: float = 0.0):
+    """Path B's head: ``(bmin, keys, qword)``."""
+    scale, rot, _ = affine
+    bmin, t = grid_anchor(batch, affine, shift)
+    keys, qword = kernels.fused_voxel_head(
+        batch.data[LOCAL], scale, rot, t, bmin, LEAF, qbits=QBITS,
+        semantics="floor")
+    return bmin, keys, qword
+
+
+def path_quantized(batch: PointBatch, head, tiles: int, fused: bool = True
+                   ) -> PointBatch:
+    """Path B (i): voxelize under the quantized head's keys and words."""
+    bmin, keys, qword = head
+    return voxel_downsample(
+        attribute_batch(batch), LEAF, bounds=(bmin, None), semantics="floor",
+        grid_bits=10, position_quantization_bits=QBITS, sort_tiles=tiles,
+        precomputed=(keys, qword), fused=fused)
+
+
+def path_quantized_internal(wbatch: PointBatch, bmin, tiles: int,
+                            fused: bool = True) -> PointBatch:
+    """Path B (ii): the same call without ``precomputed`` on a batch of f32
+    world positions, which quantizes inside."""
+    return voxel_downsample(
+        wbatch, LEAF, bounds=(bmin, None), semantics="floor", grid_bits=10,
+        position_quantization_bits=QBITS, sort_tiles=tiles, fused=fused)
+
+
+def exact_f32_head(batch: PointBatch, affine, shift: float = 0.0):
+    """Path C's head: ``(bmin, world, keys)``."""
+    scale, rot, _ = affine
+    bmin, t = grid_anchor(batch, affine, shift)
+    world, keys = kernels.fused_decode_transform_key(
+        batch.data[LOCAL], scale, rot, t, bmin, LEAF)
+    return bmin, world, keys
+
+
+def path_exact_f32(batch: PointBatch, head, tiles: int, fused: bool = True,
+                   precomputed: bool = True) -> PointBatch:
+    """Path C: voxelize the f32 world positions under the head's keys (or,
+    with ``precomputed`` off, under keys made inside)."""
+    bmin, world, keys = head
+    return voxel_downsample(
+        attribute_batch(batch, world), LEAF, bounds=(bmin, None),
+        semantics="floor", grid_bits=10, sort_tiles=tiles,
+        precomputed=(keys, None) if precomputed else None, fused=fused)
 
 
 # ---- timing ------------------------------------------------------------------
@@ -228,6 +325,88 @@ def _pack_word(batch: PointBatch) -> torch.Tensor:
 _FIELDS = ((8, 16, False, 0, 65535),)   # Intensity in the packed word
 _MODE_BITS = 8                          # Classification
 
+#: kernel row name -> (the phase whose run its ``launches`` is read from,
+#: its key in ``kernels.launch_counts()``)
+ROW_PATH = {}
+_CSRC = "pasture_tpu_torch/ops/kernels/csrc/"
+_TPU = "pasture_tpu/ops/kernels/"
+
+
+def read_launches(rows: list, path: str, counts: dict) -> None:
+    """Write the launch counts of ``path``'s run into its kernels' rows;
+    fail if the path launched one of them no time."""
+    for r in rows:
+        on_path, counter = ROW_PATH[r["name"]]
+        if on_path == path:
+            r["launches"] = counts[counter]
+            if r["launches"] < 1:
+                raise AssertionError(f"{path} never launched {r['name']}")
+
+
+def expect_launched(path: str, counts: dict, *counters: str) -> None:
+    for c in counters:
+        if counts[c] < 1:
+            raise AssertionError(f"{path} never launched {c}")
+
+
+def assert_same_voxels(what: str, got: PointBatch, ref: PointBatch,
+                       atol: float) -> float:
+    """Count and integer columns equal, centroids within ``atol``, rows past
+    the count zero.  Returns the largest centroid difference."""
+    nv = int(got.count.item())
+    if nv == 0 or nv != int(ref.count.item()):
+        raise AssertionError(f"{what}: {nv} voxels, reference "
+                             f"{int(ref.count.item())}")
+    for name in (INT, CLS):
+        if not torch.equal(got.data[name][:nv], ref.data[name][:nv]):
+            raise AssertionError(f"{what}: column {name} differs")
+    if not bool(torch.isfinite(got.data[POS][:nv]).all()):
+        raise AssertionError(f"{what}: non-finite centroids")
+    err = (got.data[POS][:nv] - ref.data[POS][:nv]).abs().max().item()
+    if not err <= atol:
+        raise AssertionError(f"{what}: centroids differ by {err}")
+    if bool((got.data[POS][nv:] != 0).any()):
+        raise AssertionError(f"{what}: rows past count are not zero")
+    return err
+
+
+def step_ms(fn, warmup: int = 2, reps: int = 7):
+    """``(median, min, max)`` ms of ``fn(i)`` as a caller sees it: events
+    around each call, host launch gaps included."""
+    times = []
+    for i in range(warmup + reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn(i)
+        e1.record()
+        e1.synchronize()
+        if i >= warmup:
+            times.append(e0.elapsed_time(e1))
+    return float(np.median(times)), float(min(times)), float(max(times))
+
+
+def check_tile_sort(streams: list, tile_len: int):
+    """``tile_sort`` by (first, second stream) against its plain version:
+    key streams bit-exact; per tile the multiset of rows equal (the sort is
+    unstable: rows with equal keys may come in any order).  Returns the
+    kernel's streams and the largest key difference."""
+    what = f"tile_sort ({len(streams)} streams)"
+    got = kernels.tile_sort(streams, tile_len, num_keys=2)
+    want = ts.tile_sort_plain(streams, tile_len, num_keys=2)
+    torch.cuda.synchronize()
+    gotc = [u32_carrier(s) for s in got]
+    dkey = max((gotc[i] - want[i]).abs().max().item() for i in range(2))
+    if dkey:
+        raise AssertionError(f"{what}: key streams differ by {dkey}")
+    full_g = ts.lex_order(gotc, tile_len)
+    full_w = ts.lex_order(list(want), tile_len)
+    for g, w in zip(gotc, want):
+        if not torch.equal(g[full_g], w[full_w]):
+            raise AssertionError(f"{what}: a tile's rows are not a "
+                                 f"permutation of its input rows")
+    return got, dkey
+
 
 def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
     """Each kernel against its plain version at the main path's shapes."""
@@ -240,8 +419,9 @@ def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
     rows = []
 
     def row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
-            library_ms=None):
+            library_ms=None, path="main_path", counter=None):
         b_ms, by = bound(n_bytes, n_ops)
+        ROW_PATH[name] = (path, counter or name)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": 0,
                      "max_abs_err": float(err), "ms": ms,
@@ -291,19 +471,7 @@ def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
     # sort is unstable: rows with equal (key, word) may come in any order)
     word = _pack_word(batch)
     streams = [u32_bits(keys), u32_bits(word), u32_bits(rword)]
-    got = kernels.tile_sort(streams, tile_len, num_keys=2)
-    want = ts.tile_sort_plain(streams, tile_len, num_keys=2)
-    torch.cuda.synchronize()
-    gotc = [u32_carrier(s) for s in got]
-    dkey = max((gotc[i] - want[i]).abs().max().item() for i in range(2))
-    if dkey:
-        raise AssertionError(f"tile_sort: key streams differ by {dkey}")
-    full_g = ts.lex_order(gotc, tile_len)
-    full_w = ts.lex_order(list(want), tile_len)
-    for g, w in zip(gotc, want):
-        if not torch.equal(g[full_g], w[full_w]):
-            raise AssertionError("tile_sort: a tile's rows are not a "
-                                 "permutation of its input rows")
+    got, dkey = check_tile_sort(streams, tile_len)
     packed = ((u32_carrier(keys) << 32) | word).reshape(tiles, tile_len)
     resid = u32_bits(rword).reshape(tiles, tile_len)
 
@@ -354,20 +522,183 @@ def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
         # 12 B read per row, 16 B written per voxel of this run, 4 B per
         # tile count; ~24 integer operations per row, ~80 per voxel
         12.0 * n + 16.0 * nv + 4.0 * tiles, 24.0 * n + 80.0 * nv)
+
+    # K5: kept rows, count and zero tail equal to the plain version, on the
+    # filter path's columns (12-, 4- and 1-byte rows) at ~90 % kept
+    gen = torch.Generator(device=dev).manual_seed(11)
+    keep = torch.rand(n, device=dev, generator=gen) < 0.9
+    ccols = [local, batch.data[INT], batch.data[CLS]]
+    got, gcount = ck.blockwise_compact(ccols, keep)
+    want, wcount = ck.blockwise_compact_plain(ccols, keep)
+    torch.cuda.synchronize()
+    kept = int(gcount.item())
+    if kept != int(wcount.item()):
+        raise AssertionError(f"blockwise_compact: {kept} kept, plain "
+                             f"{int(wcount.item())}")
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError("blockwise_compact differs from its plain "
+                                 "version")
+    row_bytes = sum(c.numel() // n * c.element_size() for c in ccols)
+    row("blockwise_compact", _CSRC + "compact.cu",
+        _TPU + "compact_kernel.py:135", 0.0,
+        gpu_ms(lambda: ck.blockwise_compact(ccols, keep), flush),
+        gpu_ms(lambda: ck.blockwise_compact_plain(ccols, keep), flush,
+               reps=5),
+        # the mask and every row read once, every output row written once
+        # (the kept rows and the zero tail); a ballot, a popcount and a few
+        # adds per row, one move per 4 bytes of a kept row
+        n + 2.0 * row_bytes * n, 12.0 * n + row_bytes / 4.0 * kept,
+        # one boolean-index call per column; each waits for the host to
+        # learn the size, and that wait is in the time
+        library_ms=gpu_ms(lambda: [c[keep] for c in ccols], flush, reps=5),
+        path="path_filter_grid")
+    del got, want
+
+    # K7a: keys and residual words bit-exact, both semantics
+    for sem in ("nearest", "floor"):
+        qargs = (local, scale, rot, t, bmin, LEAF, QBITS, sem)
+        qkeys, qword = kernels.fused_voxel_head(*qargs)
+        pk, pq = ft.fused_voxel_head_plain(*qargs)
+        torch.cuda.synchronize()
+        dk = (u32_carrier(qkeys) - pk).abs().max().item()
+        dq = (u32_carrier(qword) - pq).abs().max().item()
+        if dk or dq:
+            raise AssertionError(f"fused_voxel_head ({sem}) differs from "
+                                 f"its plain version: key {dk}, qword {dq}")
+    row("fused_voxel_head", _CSRC + "voxel_head.cu",
+        _TPU + "fused_transform.py:440", max(dk, dq),
+        gpu_ms(lambda: kernels.fused_voxel_head(*qargs), flush),
+        gpu_ms(lambda: ft.fused_voxel_head_plain(*qargs), flush, reps=5),
+        # 12 B read + 8 B written per point; transform 24, cells 18, Morton
+        # spread 41, residuals and packing 23
+        20.0 * n, 106.0 * n, path="path_quantized")
+
+    # K7b: keys and world positions bit-exact
+    dargs = (local, scale, rot, t, bmin, LEAF)
+    world, dkeys = kernels.fused_decode_transform_key(*dargs)
+    pworld, pkeys = ft.fused_decode_transform_key_plain(*dargs)
+    torch.cuda.synchronize()
+    dk = (u32_carrier(dkeys) - pkeys).abs().max().item()
+    dw = (world - pworld).abs().max().item()
+    if dk or dw:
+        raise AssertionError(f"fused_decode_transform_key differs from its "
+                             f"plain version: key {dk}, world {dw}")
+    del pworld, pkeys
+    row("fused_decode_transform_key", _CSRC + "voxel_head.cu",
+        _TPU + "fused_transform.py:108", max(dk, dw),
+        gpu_ms(lambda: kernels.fused_decode_transform_key(*dargs), flush),
+        gpu_ms(lambda: ft.fused_decode_transform_key_plain(*dargs), flush,
+               reps=5),
+        # 12 B read + 16 B written per point; transform 24, cells 12,
+        # Morton spread 41
+        28.0 * n, 77.0 * n, path="path_exact_f32")
+
+    # K3'q: the quantized form on the tile-sorted (key, word, qword) of the
+    # floor head — count, out_word and centroids bit-exact (integer sums,
+    # then the same f32 operations)
+    qs = kernels.tile_sort([u32_bits(qkeys), u32_bits(word),
+                            u32_bits(qword)], tile_len, num_keys=2)
+    qargs3 = (qs[0], qs[1], qs[2], bmin, LEAF, _MODE_BITS, _FIELDS, QBITS,
+              1.0, tile_len, "floor")
+    kpos, kword, kcount = vr.fused_sorted_voxel_reduce_rows(*qargs3)
+    ppos, pword, pcount = vr.fused_sorted_voxel_reduce_plain(*qargs3)
+    torch.cuda.synchronize()
+    nvq = int(kcount.item())
+    if nvq != int(pcount.item()) \
+            or not torch.equal(u32_carrier(kword), pword):
+        raise AssertionError("fused_sorted_voxel_reduce (quantized): count "
+                             "or out_word differs from the plain version")
+    err = (kpos - ppos).abs().max().item()
+    if err != 0.0:
+        raise AssertionError(f"fused_sorted_voxel_reduce (quantized): "
+                             f"centroids differ by {err}")
+    del ppos, pword
+    row("fused_sorted_voxel_reduce_quantized", _CSRC + "voxel_reduce.cu",
+        _TPU + "voxel_reduce_kernel.py:415", err,
+        gpu_ms(lambda: vr.fused_sorted_voxel_reduce_rows(*qargs3), flush),
+        gpu_ms(lambda: vr.fused_sorted_voxel_reduce_plain(*qargs3), flush,
+               reps=5),
+        12.0 * n + 16.0 * nvq + 4.0 * tiles, 24.0 * n + 40.0 * nvq,
+        path="path_quantized")
+
+    # K4 at five streams (key, word | x, y, z as their bits): key streams
+    # bit-exact, every tile's rows the same multiset
+    wbits = [world[:, a].contiguous().view(torch.int32) for a in range(3)]
+    streams5 = [u32_bits(dkeys), u32_bits(word)] + wbits
+    got5, dkey5 = check_tile_sort(streams5, tile_len)
+    packed5 = ((u32_carrier(dkeys) << 32) | word).reshape(tiles, tile_len)
+    w2 = [b.reshape(tiles, tile_len) for b in wbits]
+
+    def library_sort5():
+        srt = torch.sort(packed5, dim=1)
+        return srt.values, [b.gather(1, srt.indices) for b in w2]
+
+    row("tile_sort_5_streams", _CSRC + "tile_sort.cu",
+        _TPU + "tile_sort_kernel.py:132", dkey5,
+        gpu_ms(lambda: kernels.tile_sort(streams5, tile_len, num_keys=2),
+               flush),
+        gpu_ms(lambda: ts.tile_sort_plain(streams5, tile_len, num_keys=2),
+               flush, reps=5),
+        # 20 B read + 20 B written per row; per compare-exchange 4 compares
+        # of the two key words and 10 moves of the five streams
+        40.0 * n, 14.0 * stages * (n // 2),
+        library_ms=gpu_ms(library_sort5, flush, reps=5),
+        path="path_exact_f32", counter="tile_sort")
+
+    # K3'f: the exact-f32 form — count and out_word exact; centroids within
+    # atol 1e-5 + rtol 1e-6 of the plain version: both sum a voxel's f32
+    # positions in f64 and round once, the kernel serially, the plain
+    # version through index_add_ in the order the atomics happen to take
+    spos = tuple(u32_bits(s).view(torch.float32) for s in got5[2:])
+    fargs = (got5[0], got5[1], None, bmin, LEAF, _MODE_BITS, _FIELDS, 0, 1.0,
+             tile_len, "floor")
+    kpos, kword, kcount = vr.fused_sorted_voxel_reduce_rows(*fargs, spos=spos)
+    ppos, pword, pcount = vr.fused_sorted_voxel_reduce_plain(*fargs,
+                                                             spos=spos)
+    torch.cuda.synchronize()
+    nvf = int(kcount.item())
+    if nvf != int(pcount.item()) \
+            or not torch.equal(u32_carrier(kword), pword):
+        raise AssertionError("fused_sorted_voxel_reduce (exact f32): count "
+                             "or out_word differs from the plain version")
+    if not torch.allclose(kpos, ppos, rtol=1e-6, atol=1e-5):
+        raise AssertionError("fused_sorted_voxel_reduce (exact f32): "
+                             "centroids differ from the plain version")
+    err = (kpos - ppos).abs().max().item()
+    del ppos, pword
+    row("fused_sorted_voxel_reduce_exact_f32", _CSRC + "voxel_reduce.cu",
+        _TPU + "voxel_reduce_kernel.py:415", err,
+        gpu_ms(lambda: vr.fused_sorted_voxel_reduce_rows(*fargs, spos=spos),
+               flush),
+        gpu_ms(lambda: vr.fused_sorted_voxel_reduce_plain(*fargs, spos=spos),
+               flush, reps=5),
+        20.0 * n + 16.0 * nvf + 4.0 * tiles, 24.0 * n + 40.0 * nvf,
+        path="path_exact_f32")
     return rows
+
+
+def tile_groups(keys: np.ndarray, tile_len: int) -> np.ndarray:
+    """Id of every row's (tile, voxel) group, ascending in (tile, Morton
+    key) order."""
+    return (np.arange(keys.shape[0], dtype=np.int64) // tile_len) << 32 \
+        | keys.astype(np.int64)
+
+
+def group_means_f64(group: np.ndarray, values: np.ndarray) -> np.ndarray:
+    """f64 mean of ``values`` (n, 3) over equal ``group`` ids, in ascending
+    id order."""
+    _, inverse, counts = np.unique(group, return_inverse=True,
+                                   return_counts=True)
+    return np.stack([np.bincount(inverse, weights=values[:, a].astype(
+        np.float64)) for a in range(3)], axis=1) / counts[:, None]
 
 
 def f64_oracle(local: np.ndarray, keys: np.ndarray, tile_len: int
                ) -> np.ndarray:
     """Centroid of every (tile, voxel) group in f64: the affine image of
     the exact mean of the i32 locals, in (tile, Morton key) order."""
-    n = keys.shape[0]
-    group = (np.arange(n, dtype=np.int64) // tile_len) << 32 \
-        | keys.astype(np.int64)
-    _, inverse, counts = np.unique(group, return_inverse=True,
-                                   return_counts=True)
-    mean = np.stack([np.bincount(inverse, weights=local[:, a].astype(
-        np.float64)) for a in range(3)], axis=1) / counts[:, None]
+    mean = group_means_f64(tile_groups(keys, tile_len), local)
     return (mean * SCALE.astype(np.float64)) @ ROT.astype(np.float64).T \
         + TRANS
 
@@ -375,20 +706,15 @@ def f64_oracle(local: np.ndarray, keys: np.ndarray, tile_len: int
 def phase_main_path(batch: PointBatch, affine, local_np: np.ndarray,
                     tiles: int, rows: list, smi: str) -> None:
     n = batch.capacity
-    pos, inten, cls = (att.POSITION_3D.name, att.INTENSITY.name,
-                       att.CLASSIFICATION.name)
     kernels.reset_launch_counts()
     head = pipeline_head(batch, affine)
     out = pipeline_voxelize(batch, head, tiles)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    for r in rows:
-        r["launches"] = counts[r["name"]]
-        if r["launches"] < 1:                                   # check (c)
-            raise AssertionError(f"the main path never launched {r['name']}")
+    read_launches(rows, "main_path", counts)                    # check (c)
 
     nv = int(out.count.item())
-    got_pos = out.data[pos][:nv]
+    got_pos = out.data[POS][:nv]
     if not bool(torch.isfinite(got_pos).all()) or nv == 0:
         raise AssertionError("main path: no voxels or non-finite centroids")
 
@@ -397,15 +723,15 @@ def phase_main_path(batch: PointBatch, affine, local_np: np.ndarray,
     if int(ref.count.item()) != nv:
         raise AssertionError(f"main path: {nv} voxels, generic path "
                              f"{int(ref.count.item())}")
-    for name in (inten, cls):
+    for name in (INT, CLS):
         if not torch.equal(out.data[name][:nv], ref.data[name][:nv]):
             raise AssertionError(f"main path: column {name} differs from "
                                  f"the generic path")
-    err_generic = (got_pos - ref.data[pos][:nv]).abs().max().item()
+    err_generic = (got_pos - ref.data[POS][:nv]).abs().max().item()
     if not err_generic <= 1e-4:
         raise AssertionError(f"main path: centroids differ from the generic "
                              f"path by {err_generic}")
-    if bool((out.data[pos][nv:] != 0).any()):
+    if bool((out.data[POS][nv:] != 0).any()):
         raise AssertionError("main path: rows past count are not zero")
     del ref
 
@@ -417,7 +743,7 @@ def phase_main_path(batch: PointBatch, affine, local_np: np.ndarray,
     m = sub_tiles * (n // tiles)
     bmin, keys, rword, local_affine = head
     gps = torch.arange(m, dtype=torch.float32, device=batch.device) % 977
-    sub = PointBatch({inten: batch.data[inten][:m], cls: batch.data[cls][:m],
+    sub = PointBatch({INT: batch.data[INT][:m], CLS: batch.data[CLS][:m],
                       att.GPS_TIME.name: gps}, batch.count - (n - m + 5),
                      PointSchema.from_attributes(
                          [att.POSITION_3D, att.INTENSITY, att.CLASSIFICATION,
@@ -451,41 +777,235 @@ def phase_main_path(batch: PointBatch, affine, local_np: np.ndarray,
 
     # the whole step as a caller sees it: events around each step, host
     # launch gaps included
-    times = []
-    for i in range(13):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        pipeline_batch(batch, affine, tiles, shift=(i % 7) * 1e-6)
-        e1.record()
-        e1.synchronize()
-        if i >= 3:
-            times.append(e0.elapsed_time(e1))
-    step_ms = float(np.median(times))
+    ms, lo, hi = step_ms(lambda i: pipeline_batch(
+        batch, affine, tiles, shift=(i % 7) * 1e-6), warmup=3, reps=10)
     print(json.dumps({
         "phase": "main_path", "points": n, "tiles": tiles, "voxels": nv,
         "launches": counts, "max_err_vs_generic_path": err_generic,
         "max_err_vs_f64_oracle": err_oracle, "oracle_tiles": tiles,
-        "step_ms": step_ms, "step_ms_min": float(min(times)),
-        "step_ms_max": float(max(times)), "repeats": len(times),
-        "mpoints_per_s": n / step_ms / 1e3, "card": smi}), flush=True)
+        "step_ms": ms, "step_ms_min": lo, "step_ms_max": hi, "repeats": 10,
+        "mpoints_per_s": n / ms / 1e3, "card": smi}), flush=True)
 
 
-def phase_profile(batch: PointBatch, affine, tiles: int) -> None:
-    """Where one step's GPU time goes: device time by kernel name over five
-    steady steps (``torch.profiler``), the hand kernels marked."""
+def max_dist(got: torch.Tensor, oracle: np.ndarray, what: str) -> float:
+    if oracle.shape[0] != got.shape[0]:
+        raise AssertionError(f"{what}: {got.shape[0]} voxels, oracle "
+                             f"{oracle.shape[0]}")
+    return float(np.linalg.norm(
+        got.cpu().numpy().astype(np.float64) - oracle, axis=1).max())
+
+
+def phase_path_filter_grid(wbatch: PointBatch, rows: list, smi: str) -> None:
+    """Path A at the full batch, checked, counted, timed."""
+    n = wbatch.capacity
+    kernels.reset_launch_counts()
+    kept, voxels, box, (imin, imax) = path_filter_grid(wbatch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    read_launches(rows, "path_filter_grid", counts)
+
+    # the filter against boolean indexing: kept rows in order, zero tail
+    keep = wbatch.data[CLS] != 7
+    nk = int(kept.count.item())
+    if nk != int(keep.sum().item()) or not 0 < nk < n:
+        raise AssertionError(f"path_filter_grid: {nk} rows kept")
+    for name, col in wbatch.data.items():
+        if not torch.equal(kept.data[name][:nk], col[keep]) \
+                or bool((kept.data[name][nk:] != 0).any()):
+            raise AssertionError(f"path_filter_grid: filtered column {name} "
+                                 f"differs from boolean indexing")
+    # the voxel grid against the generic path in plain PyTorch all the way
+    # (f32 sums by atomics in another order: 1e-4 of coordinates ~150)
+    ref = voxel_downsample(kept, LEAF, fused=False)
+    err_generic = assert_same_voxels("path_filter_grid", voxels, ref, 1e-4)
+    del ref
+    # and an f64 oracle: the mean position of every cell of the 20-bit
+    # nearest-marker grid anchored at the data minimum, in Morton order
+    nv = int(voxels.count.item())
+    pos = kept.data[POS][:nk]
+    cells = voxel_indices(pos, torch.ones(nk, dtype=torch.bool,
+                                          device=pos.device), LEAF,
+                          pos.amin(dim=0), "nearest", 20).cpu().numpy()
+    code = morton_encode_u64(cells[:, 0], cells[:, 1], cells[:, 2])
+    err_oracle = max_dist(voxels.data[POS][:nv],
+                          group_means_f64(code, pos.cpu().numpy()),
+                          "path_filter_grid")
+    if not err_oracle < 5e-4:
+        raise AssertionError(f"path_filter_grid: a centroid is {err_oracle} "
+                             f"from the f64 oracle")
+    # bounds and min/max of the result, by numpy on the copied columns
+    vpos = voxels.data[POS][:nv].cpu().numpy()
+    vint = voxels.data[INT][:nv].cpu().numpy()
+    if not (np.array_equal(box.min, vpos.min(axis=0).astype(np.float64))
+            and np.array_equal(box.max, vpos.max(axis=0).astype(np.float64))
+            and imin == vint.min() and imax == vint.max()):
+        raise AssertionError("path_filter_grid: bounds or min/max differ "
+                             "from numpy's")
+
+    ms, lo, hi = step_ms(lambda i: path_filter_grid(wbatch), reps=5)
+    print(json.dumps({
+        "phase": "path_filter_grid", "points": n, "kept": nk, "voxels": nv,
+        "launches": counts, "max_err_vs_generic_path": err_generic,
+        "max_err_vs_f64_oracle": err_oracle, "step_ms": ms,
+        "step_ms_min": lo, "step_ms_max": hi, "repeats": 5,
+        "mpoints_per_s": n / ms / 1e3, "card": smi}), flush=True)
+
+
+def phase_path_quantized(batch: PointBatch, wbatch: PointBatch, affine,
+                         tiles: int, rows: list, smi: str) -> None:
+    """Path B at the full batch: (i) head kernel + precomputed words,
+    (ii) the internal quantizer; each checked, counted, timed."""
+    n = batch.capacity
+    tile_len = n // tiles
+    kernels.reset_launch_counts()
+    head = quantized_head(batch, affine)
+    out = path_quantized(batch, head, tiles)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    read_launches(rows, "path_quantized", counts)
+    expect_launched("path_quantized", counts, "fused_world_bounds",
+                    "fused_voxel_head", "tile_sort",
+                    "fused_sorted_voxel_reduce_quantized")
+
+    # the generic path on the same words: exact integer sums and the same
+    # f32 operations, so 1e-5 only allows for a differently rounded division
+    ref = path_quantized(batch, head, tiles, fused=False)
+    err_generic = assert_same_voxels("path_quantized", out, ref, 1e-5)
+    del ref
+    # f64 oracle from the head's own keys and residual words: cell +
+    # (mean residual + 0.5) / 2**q leaves, per (tile, voxel), in order
+    bmin, keys, qword = head
+    nv = int(out.count.item())
+    q = u32_carrier(qword).cpu().numpy()
+    group = tile_groups(u32_carrier(keys).cpu().numpy(), tile_len)
+    qm = (1 << QBITS) - 1
+    resid = np.stack([(q >> (2 * QBITS)) & qm, (q >> QBITS) & qm, q & qm],
+                     axis=1)
+    ukeys = np.unique(group) & 0xFFFFFFFF
+    cells = np.stack([_compact10_np(ukeys >> a) for a in range(3)], axis=1)
+    oracle = (cells + (group_means_f64(group, resid) + 0.5) / (1 << QBITS)) \
+        * LEAF + bmin.cpu().numpy().astype(np.float64)
+    err_oracle = max_dist(out.data[POS][:nv], oracle, "path_quantized")
+    if not err_oracle < 1e-4:
+        raise AssertionError(f"path_quantized: a centroid is {err_oracle} "
+                             f"from the f64 oracle of its own words")
+    del out
+
+    # (ii) no precomputed words: keys and residuals made inside from the
+    # f32 positions
+    before = kernels.launch_counts()
+    inside = path_quantized_internal(wbatch, bmin, tiles)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for c in ("tile_sort", "fused_sorted_voxel_reduce_quantized"):
+        if after[c] - before[c] != 1:
+            raise AssertionError(f"path_quantized (internal quantizer): "
+                                 f"{after[c] - before[c]} launches of {c}")
+    ref = path_quantized_internal(wbatch, bmin, tiles, fused=False)
+    err_inside = assert_same_voxels("path_quantized (internal quantizer)",
+                                    inside, ref, 1e-5)
+    nv_inside = int(inside.count.item())
+    del ref, inside
+
+    ms, lo, hi = step_ms(lambda i: path_quantized(
+        batch, quantized_head(batch, affine, (i % 7) * 1e-6), tiles))
+    ms2, lo2, hi2 = step_ms(lambda i: path_quantized_internal(
+        wbatch, bmin, tiles))
+    print(json.dumps({
+        "phase": "path_quantized", "points": n, "tiles": tiles, "voxels": nv,
+        "launches": counts, "max_err_vs_generic_path": err_generic,
+        "max_err_vs_f64_oracle": err_oracle, "step_ms": ms,
+        "step_ms_min": lo, "step_ms_max": hi, "repeats": 7,
+        "mpoints_per_s": n / ms / 1e3,
+        "internal_quantizer": {
+            "voxels": nv_inside, "max_err_vs_generic_path": err_inside,
+            "step_ms": ms2, "step_ms_min": lo2, "step_ms_max": hi2},
+        "card": smi}), flush=True)
+
+
+def _compact10_np(v: np.ndarray) -> np.ndarray:
+    """Every third bit of ``v``, from bit 0, gathered into 10 bits."""
+    v = v & 0x09249249
+    v = (v | (v >> 2)) & 0x030C30C3
+    v = (v | (v >> 4)) & 0x0300F00F
+    v = (v | (v >> 8)) & 0x030000FF
+    return (v | (v >> 16)) & 0x3FF
+
+
+def phase_path_exact_f32(batch: PointBatch, affine, tiles: int, rows: list,
+                         smi: str) -> None:
+    """Path C at the full batch, checked, counted, timed."""
+    n = batch.capacity
+    tile_len = n // tiles
+    kernels.reset_launch_counts()
+    head = exact_f32_head(batch, affine)
+    out = path_exact_f32(batch, head, tiles)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    read_launches(rows, "path_exact_f32", counts)
+    expect_launched("path_exact_f32", counts, "fused_world_bounds",
+                    "fused_decode_transform_key", "tile_sort",
+                    "fused_sorted_voxel_reduce_exact_f32")
+
+    # the generic path sums f32 positions in f32 by atomics, the kernel in
+    # f64: 1e-4 of coordinates ~150, the bound the JAX package's own tests
+    # hold these two paths to
+    ref = path_exact_f32(batch, head, tiles, fused=False)
+    err_generic = assert_same_voxels("path_exact_f32", out, ref, 1e-4)
+    del ref
+    # f64 oracle: mean of the head's f32 world positions per (tile, voxel)
+    bmin, world, keys = head
+    nv = int(out.count.item())
+    group = tile_groups(u32_carrier(keys).cpu().numpy(), tile_len)
+    err_oracle = max_dist(out.data[POS][:nv],
+                          group_means_f64(group, world.cpu().numpy()),
+                          "path_exact_f32")
+    if not err_oracle < 1e-4:
+        raise AssertionError(f"path_exact_f32: a centroid is {err_oracle} "
+                             f"from the f64 oracle")
+    del out
+
+    # the same form without precomputed keys: the keys are made inside
+    before = kernels.launch_counts()
+    inside = path_exact_f32(batch, head, tiles, precomputed=False)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for c in ("tile_sort", "fused_sorted_voxel_reduce_exact_f32"):
+        if after[c] - before[c] != 1:
+            raise AssertionError(f"path_exact_f32 (keys made inside): "
+                                 f"{after[c] - before[c]} launches of {c}")
+    ref = path_exact_f32(batch, head, tiles, fused=False, precomputed=False)
+    err_inside = assert_same_voxels("path_exact_f32 (keys made inside)",
+                                    inside, ref, 1e-4)
+    del ref, inside
+
+    ms, lo, hi = step_ms(lambda i: path_exact_f32(
+        batch, exact_f32_head(batch, affine, (i % 7) * 1e-6), tiles))
+    print(json.dumps({
+        "phase": "path_exact_f32", "points": n, "tiles": tiles, "voxels": nv,
+        "launches": counts, "max_err_vs_generic_path": err_generic,
+        "max_err_vs_f64_oracle": err_oracle,
+        "max_err_keys_made_inside_vs_generic_path": err_inside,
+        "step_ms": ms, "step_ms_min": lo, "step_ms_max": hi, "repeats": 7,
+        "mpoints_per_s": n / ms / 1e3, "card": smi}), flush=True)
+
+
+def phase_profile(path: str, step, steps: int = 5) -> None:
+    """Where one step of ``path`` spends its GPU time: device time by kernel
+    name over ``steps`` steady calls of ``step(i)`` (``torch.profiler``),
+    the hand kernels marked."""
     from torch.profiler import ProfilerActivity, profile
-    steps = 5
-    pipeline_batch(batch, affine, tiles)
+    step(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
-            pipeline_batch(batch, affine, tiles, shift=(i % 7) * 1e-6)
+            step(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    ours = ("world_bounds", "voxel_head", "tile_sort", "voxel_reduce")
+    ours = ("world_bounds", "voxel_head", "decode_transform_key",
+            "tile_sort", "voxel_reduce", "compact_count", "compact_write")
     by_name = {}
     for e in prof.events():
         if e.device_type.name == "CUDA":
@@ -495,7 +1015,8 @@ def phase_profile(batch: PointBatch, affine, tiles: int) -> None:
     busy = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
     print(json.dumps({
-        "phase": "profile", "steps": steps, "traced_wall_ms_per_step": wall_ms,
+        "phase": "profile", "path": path, "steps": steps,
+        "traced_wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy,
         "hand_kernels_ms_per_step": sum(
             v[0] for k, v in by_name.items() if any(o in k for o in ours)),
@@ -517,10 +1038,25 @@ def main() -> int:
     rows = phase_kernels(batch, affine, tiles)
     print(json.dumps({"phase": "kernels", "points": N, "tiles": tiles,
                       "names": [r["name"] for r in rows]}), flush=True)
-    phase_main_path(batch, affine, local_np, tiles, rows,
-                    info["nvidia_smi"])
+    smi = info["nvidia_smi"]
+    phase_main_path(batch, affine, local_np, tiles, rows, smi)
+    # the f32 world positions of the batch, for the two paths that start
+    # from a position column
+    wbatch = attribute_batch(batch, exact_f32_head(batch, affine)[1])
+    phase_path_filter_grid(wbatch, rows, smi)
+    phase_path_quantized(batch, wbatch, affine, tiles, rows, smi)
+    phase_path_exact_f32(batch, affine, tiles, rows, smi)
     if "--profile" in sys.argv[1:]:
-        phase_profile(batch, affine, tiles)
+        def shift(i):
+            return (i % 7) * 1e-6
+        phase_profile("main_path", lambda i: pipeline_batch(
+            batch, affine, tiles, shift=shift(i)))
+        phase_profile("path_filter_grid", lambda i: path_filter_grid(wbatch),
+                      steps=3)
+        phase_profile("path_quantized", lambda i: path_quantized(
+            batch, quantized_head(batch, affine, shift(i)), tiles))
+        phase_profile("path_exact_f32", lambda i: path_exact_f32(
+            batch, exact_f32_head(batch, affine, shift(i)), tiles))
     print(json.dumps({"kernels": rows}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 Same layer names as the JAX package it is ported from, so a reader finds
 the counterpart of every module:
 
-  layout -> buffers -> math -> ops -> ops.kernels
+  layout -> buffers -> math -> ops -> ops.kernels; algorithms on top
 
 * data lives as SoA :class:`~pasture_tpu_torch.buffers.PointBatch` dicts of
   torch tensors;
@@ -18,6 +18,6 @@ the counterpart of every module:
 
 __version__ = "0.1.0"
 
-from . import layout  # noqa: F401
+from . import algorithms, layout  # noqa: F401
 from .buffers import HostPointBuffer, PointBatch  # noqa: F401
 from .layout import PointAttribute, PointSchema  # noqa: F401

@@ -21,9 +21,13 @@ from .layout.dtypes import DevicePolicy, carrier_np_dtype
 from .layout.schema import PointSchema
 
 __all__ = ["batch_from_reference_arrays", "batch_to_reference_arrays",
-           "affine_from_reference"]
+           "affine_from_reference", "head_args_from_reference"]
 
 _BUILTIN = {a.name: a for a in att.BUILTIN_ATTRIBUTES}
+
+
+def _f32(x, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
 
 
 def _schema_of(attribute_names: Sequence[str]) -> PointSchema:
@@ -77,10 +81,20 @@ def affine_from_reference(scale, rot, trans, coeffs,
     """``local_affine=(scale, rot, trans, coeffs)`` of the JAX package as
     tensors for the port (f32, f32, f32, int32)."""
     dev = resolve_device(device)
-
-    def f32(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
-
-    return (f32(scale).reshape(3), f32(rot).reshape(3, 3),
-            f32(trans).reshape(3),
+    return (_f32(scale, dev).reshape(3), _f32(rot, dev).reshape(3, 3),
+            _f32(trans, dev).reshape(3),
             torch.from_numpy(np.array(coeffs, dtype=np.int32)).to(dev))
+
+
+def head_args_from_reference(scale, rot, trans, bounds_min, leaf_size,
+                             device: Optional[Union[str, torch.device]] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor, torch.Tensor, float]:
+    """``(scale, rotation, translation, bounds_min, leaf_size)`` of a JAX
+    head call (``fused_voxel_head``, ``fused_decode_transform_key``) as the
+    port's head arguments: four f32 tensors on ``device`` and the leaf as a
+    Python float."""
+    dev = resolve_device(device)
+    return (_f32(scale, dev).reshape(3), _f32(rot, dev).reshape(3, 3),
+            _f32(trans, dev).reshape(3), _f32(bounds_min, dev).reshape(3),
+            float(leaf_size))

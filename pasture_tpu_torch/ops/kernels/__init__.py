@@ -2,25 +2,32 @@
 plain PyTorch version.  Nothing is compiled at import: the sources under
 ``csrc/`` are built by ``nvcc`` at the first CUDA launch (``_build.py``)."""
 
+from .compact_kernel import blockwise_compact  # noqa: F401
 from .fused_transform import (  # noqa: F401
     exact_local_base_coeffs, exact_local_max_leaf,
+    fused_decode_transform_key, fused_voxel_head,
     fused_voxel_head_exact_local, fused_world_bounds)
 from .tile_sort_kernel import supports_tile_sort, tile_sort  # noqa: F401
 from .voxel_reduce_kernel import fused_sorted_voxel_reduce  # noqa: F401
 
 
+def _kernel_modules():
+    from . import (compact_kernel, fused_transform, tile_sort_kernel,
+                   voxel_reduce_kernel)
+    return (compact_kernel, fused_transform, tile_sort_kernel,
+            voxel_reduce_kernel)
+
+
 def launch_counts() -> dict:
     """Launch count of every kernel, by wrapper name."""
-    from . import fused_transform, tile_sort_kernel, voxel_reduce_kernel
     out = {}
-    for mod in (fused_transform, tile_sort_kernel, voxel_reduce_kernel):
+    for mod in _kernel_modules():
         out.update(mod.LAUNCHES)
     return out
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    from . import fused_transform, tile_sort_kernel, voxel_reduce_kernel
-    for mod in (fused_transform, tile_sort_kernel, voxel_reduce_kernel):
+    for mod in _kernel_modules():
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0

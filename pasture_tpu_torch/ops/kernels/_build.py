@@ -46,19 +46,31 @@ SOURCES: Dict[str, Dict[str, Sequence]] = {
     "voxel_head": {
         # local, n, params, inv_leaf, coeffs, nearest, key, rword, stream
         "voxel_head_exact_local_launch": (P, I, P, F, P, I, P, P, P),
+        # local, n, params, inv_leaf, qscale, qbits, nearest, key, qword,
+        # stream
+        "voxel_head_quantized_launch": (P, I, P, F, F, I, I, P, P, P),
+        # local, n, params, inv_leaf, world, key, stream
+        "decode_transform_key_launch": (P, I, P, F, P, P, P),
     },
     "tile_sort": {
-        # in[4], out[4], n_streams, num_keys, tiles, tile_len, stream
-        "tile_sort_launch": (P, P, P, P, P, P, P, P, I, I, I, I, P),
+        # in[5], out[5], n_streams, num_keys, tiles, tile_len, stream
+        "tile_sort_launch": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
+    },
+    "compact": {
+        # keep, n, blocks, counts, stream
+        "compact_count_launch": (P, I, I, P, P),
+        # keep, n, blocks, offsets, total, n_cols, src[], dst[], units[],
+        # unit[], stream
+        "compact_write_launch": (P, I, I, P, P, I, P, P, P, P, P),
     },
     "voxel_reduce": {
         # key, tiles, tile_len, counts, stream
         "voxel_reduce_count_launch": (P, I, I, P, P),
-        # key, word, rword, tiles, tile_len, offsets, params, coeffs,
-        # mode_bits, n_fields, field_ints, field_floats,
-        # pos, out_word, stream
-        "voxel_reduce_write_launch": (P, P, P, I, I, P, P, P, I, I, P, P,
-                                      P, P, P),
+        # form, key, word, s3, s4, s5 (residual word | px, py, pz), tiles,
+        # tile_len, offsets, params, coeffs, qbits, mode_bits, n_fields,
+        # field_ints, field_floats, pos, out_word, stream
+        "voxel_reduce_write_launch": (I, P, P, P, P, P, I, I, P, P, P, I, I,
+                                      I, P, P, P, P, P),
     },
 }
 

@@ -1,5 +1,5 @@
 // K4 tile_sort: unstable ascending sort of independent power-of-two tiles
-// of 1-4 parallel 32-bit streams.  The first NK streams are a lexicographic
+// of 1-5 parallel 32-bit streams.  The first NK streams are a lexicographic
 // UNSIGNED key; the other streams move with their row.
 //
 // One block per tile: the tile's streams are loaded into shared memory, a
@@ -13,13 +13,15 @@ __global__ void tile_sort_kernel(const uint32_t* __restrict__ i0,
                                  const uint32_t* __restrict__ i1,
                                  const uint32_t* __restrict__ i2,
                                  const uint32_t* __restrict__ i3,
+                                 const uint32_t* __restrict__ i4,
                                  uint32_t* __restrict__ o0,
                                  uint32_t* __restrict__ o1,
                                  uint32_t* __restrict__ o2,
-                                 uint32_t* __restrict__ o3, int tile_len) {
+                                 uint32_t* __restrict__ o3,
+                                 uint32_t* __restrict__ o4, int tile_len) {
     extern __shared__ uint32_t sm[];   // NS arrays of tile_len words
-    const uint32_t* in[4] = {i0, i1, i2, i3};
-    uint32_t* out[4] = {o0, o1, o2, o3};
+    const uint32_t* in[5] = {i0, i1, i2, i3, i4};
+    uint32_t* out[5] = {o0, o1, o2, o3, o4};
     const long long base = (long long)blockIdx.x * tile_len;
 #pragma unroll
     for (int s = 0; s < NS; ++s)
@@ -65,6 +67,8 @@ __global__ void tile_sort_kernel(const uint32_t* __restrict__ i0,
 template <int NS, int NK>
 static int launch(const void* const* in, void* const* out, int tiles,
                   int tile_len, cudaStream_t s) {
+    // five streams of 4096 rows are 80 KiB: above the 48 KiB a block gets
+    // without opting in to the large carve-out
     const size_t smem = (size_t)NS * tile_len * sizeof(uint32_t);
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
@@ -77,26 +81,28 @@ static int launch(const void* const* in, void* const* out, int tiles,
     if (threads > 512) threads = 512;
     tile_sort_kernel<NS, NK><<<tiles, threads, smem, s>>>(
         (const uint32_t*)in[0], (const uint32_t*)in[1],
-        (const uint32_t*)in[2], (const uint32_t*)in[3], (uint32_t*)out[0],
-        (uint32_t*)out[1], (uint32_t*)out[2], (uint32_t*)out[3], tile_len);
+        (const uint32_t*)in[2], (const uint32_t*)in[3],
+        (const uint32_t*)in[4], (uint32_t*)out[0], (uint32_t*)out[1],
+        (uint32_t*)out[2], (uint32_t*)out[3], (uint32_t*)out[4], tile_len);
     return (int)cudaGetLastError();
 }
 
 extern "C" int tile_sort_launch(const void* in0, const void* in1,
-                                const void* in2, const void* in3, void* out0,
-                                void* out1, void* out2, void* out3,
+                                const void* in2, const void* in3,
+                                const void* in4, void* out0, void* out1,
+                                void* out2, void* out3, void* out4,
                                 int n_streams, int num_keys, int tiles,
                                 int tile_len, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    const void* in[4] = {in0, in1, in2, in3};
-    void* out[4] = {out0, out1, out2, out3};
+    const void* in[5] = {in0, in1, in2, in3, in4};
+    void* out[5] = {out0, out1, out2, out3, out4};
     if (num_keys < 1 || num_keys > 2 || num_keys > n_streams)
         return (int)cudaErrorInvalidValue;
 #define PT_CASE(NS, NK) \
     if (n_streams == NS && num_keys == NK) \
         return launch<NS, NK>(in, out, tiles, tile_len, s);
     PT_CASE(1, 1) PT_CASE(2, 1) PT_CASE(2, 2) PT_CASE(3, 1) PT_CASE(3, 2)
-    PT_CASE(4, 1) PT_CASE(4, 2)
+    PT_CASE(4, 1) PT_CASE(4, 2) PT_CASE(5, 1) PT_CASE(5, 2)
 #undef PT_CASE
     return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,14 @@
-"""Pipeline head: world bounds and the exact-local voxel head.
+"""Pipeline head: world bounds and the three voxel heads (exact-local,
+quantized, decode + transform + key).
 
-Two hand-written CUDA kernels (``csrc/world_bounds.cu``,
+Four hand-written CUDA kernels (``csrc/world_bounds.cu`` and the three of
 ``csrc/voxel_head.cu``), each beside its plain PyTorch version.  Given a
 CUDA tensor a wrapper launches its kernel or raises; given a CPU tensor it
 runs the plain version.  The float arithmetic of both forms is the same
 sequence of individually rounded f32 operations (the kernels are compiled
-with ``-fmad=false``), so kernel and plain version agree bit for bit.
+with ``-fmad=false``, and ``1/leaf`` and the residual scale are rounded to
+f32 once on the host and handed to both), so kernel and plain version agree
+bit for bit.
 
 EXACT pipeline head — integer local-coordinate residuals.  The rigid
 transform is affine, so the per-voxel centroid commutes with it:
@@ -36,12 +39,15 @@ from . import _build
 
 __all__ = ["fused_world_bounds", "fused_world_bounds_plain",
            "fused_voxel_head_exact_local",
-           "fused_voxel_head_exact_local_plain", "exact_local_max_leaf",
+           "fused_voxel_head_exact_local_plain", "fused_voxel_head",
+           "fused_voxel_head_plain", "fused_decode_transform_key",
+           "fused_decode_transform_key_plain", "exact_local_max_leaf",
            "exact_local_base_coeffs", "LAUNCHES"]
 
 #: launches of each kernel of this module (a wrapper adds one where it
 #: launches its kernel, and nowhere else)
-LAUNCHES = {"fused_world_bounds": 0, "fused_voxel_head_exact_local": 0}
+LAUNCHES = {"fused_world_bounds": 0, "fused_voxel_head_exact_local": 0,
+            "fused_voxel_head": 0, "fused_decode_transform_key": 0}
 
 _BASE_SHIFT = 8  # fixed-point fractional bits of the base coefficients
 
@@ -205,25 +211,57 @@ def _inv_leaf(leaf_size: float) -> float:
     return float(np.float32(1.0 / float(leaf_size)))
 
 
-def fused_voxel_head_exact_local_plain(local, scale, rotation, translation,
-                                       bounds_min, leaf_size: float, coeffs,
-                                       semantics: str = "floor"):
-    """Plain PyTorch version of :func:`fused_voxel_head_exact_local`;
-    returns the two u32 words in carrier form (int64)."""
+def _check_semantics(semantics: str) -> None:
+    if semantics not in ("floor", "nearest"):
+        raise ValueError(f"unknown voxel semantics {semantics!r}")
+
+
+def _grid_coords(local, scale, rotation, translation, bounds_min,
+                 leaf_size: float, semantics: str):
+    """What every head starts with: world position ``t``, grid coordinate
+    ``u = (t - bmin) * inv_leaf`` and int32 cell per axis (three lists),
+    and the 30-bit Morton key (carrier form)."""
     from ...math.morton import _expand10_u32
-    dev = local.device
-    p = _head_params(scale, rotation, translation, bounds_min, dev)
+    p = _head_params(scale, rotation, translation, bounds_min, local.device)
     inv_leaf = _inv_leaf(leaf_size)
     t = _world(local, p[0:3], p[3:12].reshape(3, 3), p[12:15])
-    coef = torch.as_tensor(coeffs, device=dev).to(torch.int32)
-    cells = []
+    us, cells = [], []
     for a in range(3):
         u = (t[a] - p[15 + a]) * inv_leaf
+        us.append(u)
         if semantics == "nearest":
             u = u - 0.5
         cells.append(torch.clamp(torch.floor(u), 0, 1023).to(torch.int32))
     key = (_expand10_u32(cells[0]) | (_expand10_u32(cells[1]) << 1)
            | (_expand10_u32(cells[2]) << 2))
+    return t, us, cells, key
+
+
+def _launch_head(name: str, entry: str, local, scale, rotation, translation,
+                 bounds_min, leaf_size: float, *rest) -> None:
+    """Launch the head kernel of wrapper ``name``: every C entry point of
+    ``csrc/voxel_head.cu`` takes ``(local, n, params, inv_leaf, *rest,
+    stream)``."""
+    dev = local.device
+    params = _head_params(scale, rotation, translation, bounds_min,
+                          dev).contiguous()
+    lib = _build.library("voxel_head")
+    with torch.cuda.device(dev):
+        code = getattr(lib, entry)(
+            local.data_ptr(), local.shape[0], params.data_ptr(),
+            _inv_leaf(leaf_size), *rest, _build.stream())
+    _build.check(code, name)
+    LAUNCHES[name] += 1
+
+
+def fused_voxel_head_exact_local_plain(local, scale, rotation, translation,
+                                       bounds_min, leaf_size: float, coeffs,
+                                       semantics: str = "floor"):
+    """Plain PyTorch version of :func:`fused_voxel_head_exact_local`;
+    returns the two u32 words in carrier form (int64)."""
+    _, _, cells, key = _grid_coords(local, scale, rotation, translation,
+                                    bounds_min, leaf_size, semantics)
+    coef = torch.as_tensor(coeffs, device=local.device).to(torch.int32)
     r = [torch.clamp(local[:, a] - _int_cell_base(coef, *cells, a), 0, 1023)
          .to(torch.int64) for a in range(3)]
     return key, (r[0] << 20) | (r[1] << 10) | r[2]
@@ -243,8 +281,7 @@ def fused_voxel_head_exact_local(local: torch.Tensor, scale, rotation,
     form (int32); on a CPU tensor the plain version returns carrier form
     (int64).  Every consumer in this package takes either."""
     _check_local(local)
-    if semantics not in ("floor", "nearest"):
-        raise ValueError(f"unknown voxel semantics {semantics!r}")
+    _check_semantics(semantics)
     if not local.is_cuda:
         return fused_voxel_head_exact_local_plain(
             local, scale, rotation, translation, bounds_min, leaf_size,
@@ -252,21 +289,124 @@ def fused_voxel_head_exact_local(local: torch.Tensor, scale, rotation,
     dev = local.device
     local = local.contiguous()
     n = local.shape[0]
-    params = _head_params(scale, rotation, translation, bounds_min,
-                          dev).contiguous()
     coef = torch.as_tensor(coeffs, device=dev).to(torch.int32).contiguous()
     if coef.numel() != 15:
         raise ValueError("coeffs must hold 15 int32 values")
     key = torch.empty(n, dtype=torch.int32, device=dev)
     rword = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
-        lib = _build.library("voxel_head")
-        with torch.cuda.device(dev):
-            code = lib.voxel_head_exact_local_launch(
-                local.data_ptr(), n, params.data_ptr(),
-                _inv_leaf(leaf_size), coef.data_ptr(),
-                int(semantics == "nearest"), key.data_ptr(),
-                rword.data_ptr(), _build.stream())
-        _build.check(code, "fused_voxel_head_exact_local")
-        LAUNCHES["fused_voxel_head_exact_local"] += 1
+        _launch_head(
+            "fused_voxel_head_exact_local", "voxel_head_exact_local_launch",
+            local, scale, rotation, translation, bounds_min, leaf_size,
+            coef.data_ptr(), int(semantics == "nearest"), key.data_ptr(),
+            rword.data_ptr())
     return key, rword
+
+
+# ---- K7a: quantized voxel head --------------------------------------------
+# Replaces: pasture_tpu/ops/kernels/fused_transform.py fused_voxel_head
+# (_make_head_kernel).  Bound on the H100: bytes — 12 B read + 8 B written
+# per point.  Design: K2's kernel with another second word — the same
+# thread-per-point pass over the (N, 3) tensor, the residual of the grid
+# coordinate against the CLIPPED cell scaled by 2^q / window, floored and
+# clipped to q bits (a point beyond the grid saturates, it does not wrap).
+
+def _qscale(qbits: int, semantics: str) -> float:
+    """2^q / window (1.0 leaves for floor, 1.5 for nearest), rounded to f32
+    once: a host scalar for kernel and plain version alike."""
+    window = 1.5 if semantics == "nearest" else 1.0
+    return float(np.float32(float(1 << qbits) / window))
+
+
+def _check_qbits(qbits: int) -> None:
+    if not (1 <= qbits and 3 * qbits <= 32):
+        raise ValueError(f"qbits must satisfy 1 <= qbits and 3 * qbits <= "
+                         f"32, got {qbits}")
+
+
+def fused_voxel_head_plain(local, scale, rotation, translation, bounds_min,
+                           leaf_size: float, qbits: int = 10,
+                           semantics: str = "floor"):
+    """Plain PyTorch version of :func:`fused_voxel_head`; returns the two
+    u32 words in carrier form (int64)."""
+    _check_qbits(qbits)
+    _, us, cells, key = _grid_coords(local, scale, rotation, translation,
+                                     bounds_min, leaf_size, semantics)
+    qscale = _qscale(qbits, semantics)
+    q = [torch.clamp(torch.floor((us[a] - cells[a].to(torch.float32))
+                                 * qscale), 0, (1 << qbits) - 1)
+         .to(torch.int64) for a in range(3)]
+    return key, (q[0] << (2 * qbits)) | (q[1] << qbits) | q[2]
+
+
+def fused_voxel_head(local: torch.Tensor, scale, rotation, translation,
+                     bounds_min, leaf_size: float, qbits: int = 10,
+                     semantics: str = "floor"):
+    """(N,) Morton keys + (N,) packed ``qbits``-bit residual words for the
+    quantized voxel pipeline (``voxel_downsample`` ``precomputed=(keys,
+    qword)`` + ``position_quantization_bits=qbits``), one pass over the i32
+    locals.  Residual windows match ops/voxel.py: [0, 1) leaves for
+    ``floor``, [0, 1.5) for ``nearest`` (low-edge clamp).  Any N.
+
+    On a CUDA tensor the kernel runs and the two words come back in bits
+    form (int32); on a CPU tensor the plain version returns carrier form
+    (int64)."""
+    _check_local(local)
+    _check_semantics(semantics)
+    _check_qbits(qbits)
+    if not local.is_cuda:
+        return fused_voxel_head_plain(local, scale, rotation, translation,
+                                      bounds_min, leaf_size, qbits, semantics)
+    local = local.contiguous()
+    n = local.shape[0]
+    key = torch.empty(n, dtype=torch.int32, device=local.device)
+    qword = torch.empty(n, dtype=torch.int32, device=local.device)
+    if n:
+        _launch_head(
+            "fused_voxel_head", "voxel_head_quantized_launch", local, scale,
+            rotation, translation, bounds_min, leaf_size,
+            _qscale(qbits, semantics), int(qbits),
+            int(semantics == "nearest"), key.data_ptr(), qword.data_ptr())
+    return key, qword
+
+
+# ---- K7b: decode + transform + key ----------------------------------------
+# Replaces: pasture_tpu/ops/kernels/fused_transform.py
+# fused_decode_transform_key (_kernel).  Bound on the H100: bytes — 12 B
+# read + 16 B written per point.  Design: the same pass again, writing the
+# world position as one row of an (N, 3) tensor (no three streams and a
+# stack afterwards) beside the key; floor semantics only, as there.
+
+def fused_decode_transform_key_plain(local, scale, rotation, translation,
+                                     bounds_min, leaf_size: float):
+    """Plain PyTorch version of :func:`fused_decode_transform_key`; the key
+    in carrier form (int64)."""
+    t, _, _, key = _grid_coords(local, scale, rotation, translation,
+                                bounds_min, leaf_size, "floor")
+    return torch.stack(t, dim=1), key
+
+
+def fused_decode_transform_key(local: torch.Tensor, scale, rotation,
+                               translation, bounds_min, leaf_size: float):
+    """(N, 3) i32 local coords -> (world (N, 3) f32, Morton key (N,)) over
+    the 1024^3 grid of ``bounds_min`` + ``leaf_size`` (floor semantics) —
+    the head of the exact-f32 voxel path (``voxel_downsample``
+    ``precomputed=(keys, None)`` on a batch carrying the world column).
+    Any N.
+
+    On a CUDA tensor the kernel runs and the key comes back in bits form
+    (int32); on a CPU tensor the plain version returns carrier form."""
+    _check_local(local)
+    if not local.is_cuda:
+        return fused_decode_transform_key_plain(
+            local, scale, rotation, translation, bounds_min, leaf_size)
+    local = local.contiguous()
+    n = local.shape[0]
+    world = torch.empty((n, 3), dtype=torch.float32, device=local.device)
+    key = torch.empty(n, dtype=torch.int32, device=local.device)
+    if n:
+        _launch_head(
+            "fused_decode_transform_key", "decode_transform_key_launch",
+            local, scale, rotation, translation, bounds_min, leaf_size,
+            world.data_ptr(), key.data_ptr())
+    return world, key

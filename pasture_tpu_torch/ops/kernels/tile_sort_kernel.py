@@ -1,7 +1,8 @@
 """Tile sort — the sort of the voxel pipeline's hot path.
 
 The headline pipeline sorts 8192 independent 512-row tiles of 3 u32 streams
-(Morton key, packed word, residual word) by (key, word).
+(Morton key, packed word, residual word) by (key, word); the exact-f32 voxel
+path sorts 5 (key, word and the three f32 position streams as their bits).
 
 Replaces: pasture_tpu/ops/kernels/tile_sort_kernel.py tile_sort_pallas
 (_make_kernel).  Bound on the H100: bytes at the headline shape — 12 B read
@@ -34,8 +35,10 @@ __all__ = ["tile_sort", "tile_sort_plain", "supports_tile_sort", "LAUNCHES",
 #: launches of the kernel (the wrapper adds one where it launches it)
 LAUNCHES = {"tile_sort": 0}
 
-MAX_TILE_LEN = 4096   # 4 streams x 4096 rows x 4 B = 64 KiB of shared memory
-MAX_STREAMS = 4
+# 5 streams x 4096 rows x 4 B = 80 KiB of shared memory: the launch opts in
+# to the large dynamic carve-out (up to 227 KiB a block) above 48 KiB
+MAX_TILE_LEN = 4096
+MAX_STREAMS = 5   # key, word and the three f32 position streams
 
 
 def supports_tile_sort(n: int, tile_len: int, n_streams: int) -> bool:

@@ -1,16 +1,28 @@
 """Fused voxel reduction + compaction — the post-sort half of the voxel
-pipeline, exact-local form.
+pipeline, in the three forms of its position operands.
 
 Input: the tile-sorted operands of ops/voxel.py's fast path — Morton key,
 the packed secondary word (mode value in the top bits, narrow mean fields
-below), and the packed exact 10-bit residual word.  The sort runs per
-spatial tile, so no voxel spans a tile and every reduction is tile-local.
+below), and the positions in one of three forms:
+
+* **exact-local** (``sqword`` + ``local_affine=``): a word of three exact
+  10-bit local residuals; centroid = affine image of cell base + exact
+  residual mean;
+* **quantized** (``sqword`` alone): a word of three ``qbits``-bit in-cell
+  residuals; centroid = ``(cell + (mean + 0.5) * qwindow / 2**qbits) * leaf
+  + bounds_min``, the cell decoded from the key;
+* **exact-f32** (``spos=(px, py, pz)``): three sorted f32 streams; centroid
+  = their mean over the voxel, accumulated in f64 and rounded once.
+
+The sort runs per spatial tile, so no voxel spans a tile and every
+reduction is tile-local.
 
 Replaces: pasture_tpu/ops/kernels/voxel_reduce_kernel.py
 fused_sorted_voxel_reduce (_make_kernel with _seg_totals, _seg_max,
-_tiered_ladder, _compact10), exact-local form, together with the merge of
+_tiered_ladder, _compact10), all three forms, together with the merge of
 per-block outputs that followed it there (ops/compact.py _merge_tiles).
-Bound on the H100: bytes — 12 B read per row + 16 B written per voxel.
+Bound on the H100: bytes — 12 B (20 B for exact-f32) read per row + 16 B
+written per voxel.
 Design (``csrc/voxel_reduce.cu``): one block per sort tile holds the tile
 in shared memory; run-start flags and a block-wide scan rank each voxel in
 its tile; the thread owning a run start walks the run (a handful of
@@ -21,7 +33,11 @@ globally compacted in (tile, Morton) order with no merge pass.
 
 Integer sums are exact (int64); a mean is ``float32(sum) / float32(count)``.
 That equals the f32 running sum of the reference whenever the latter is
-exact (sums below 2**24).
+exact (sums below 2**24).  The exact-local and quantized forms therefore
+equal their plain versions bit for bit.  The exact-f32 form sums floats:
+the kernel's thread adds its run serially, the plain version through
+``index_add_``, both in f64, so they agree to the last f32 bit except
+where the two f64 sums straddle a rounding boundary.
 """
 
 from __future__ import annotations
@@ -29,6 +45,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ...math.morton import morton_decode_u32
@@ -40,12 +57,23 @@ __all__ = ["fused_sorted_voxel_reduce", "fused_sorted_voxel_reduce_rows",
            "fused_sorted_voxel_reduce_plain", "supports_fused_reduce",
            "LAUNCHES", "MAX_TILE_LEN", "MAX_FIELDS"]
 
-#: launches of the kernel (count + write launches count as one)
-LAUNCHES = {"fused_sorted_voxel_reduce": 0}
+#: launches of the kernel by position form (the count and the write launch
+#: of one call count as one)
+LAUNCHES = {"fused_sorted_voxel_reduce": 0,             # exact-local
+            "fused_sorted_voxel_reduce_quantized": 0,
+            "fused_sorted_voxel_reduce_exact_f32": 0}
 
 _INVALID = 0xFFFFFFFF
-MAX_TILE_LEN = 4096   # 3 streams x 4096 rows x 4 B = 48 KiB of shared memory
+# 3 streams x 4096 rows x 4 B = 48 KiB of shared memory; the exact-f32 form
+# holds 5 streams = 80 KiB, within the 227 KiB a block can opt in to
+MAX_TILE_LEN = 4096
 MAX_FIELDS = 4
+
+# position forms, as csrc/voxel_reduce.cu numbers them
+_EXACT_LOCAL, _QUANTIZED, _EXACT_F32 = 0, 1, 2
+_FORM_COUNTER = ("fused_sorted_voxel_reduce",
+                 "fused_sorted_voxel_reduce_quantized",
+                 "fused_sorted_voxel_reduce_exact_f32")
 
 
 def supports_fused_reduce(n: int, tile_len: int, n_fields: int = 0) -> bool:
@@ -54,17 +82,37 @@ def supports_fused_reduce(n: int, tile_len: int, n_fields: int = 0) -> bool:
             and n < (1 << 31) and n_fields <= MAX_FIELDS)
 
 
-def _check_args(skey, tile_len, fields, qbits, spos, local_affine):
-    if spos is not None or local_affine is None:
-        raise NotImplementedError(
-            "fused_sorted_voxel_reduce: only the exact-local form "
-            "(local_affine=) is ported; the quantized and exact-f32 forms "
-            "come with the quantized-path slice")
-    if qbits != 10:
+def _check_args(skey, tile_len, fields, qbits, sqword, spos, local_affine
+                ) -> int:
+    """Validate and return the position form."""
+    if (sqword is None) == (spos is None):
+        raise ValueError("pass exactly one of sqword / spos")
+    if spos is not None and local_affine is not None:
+        raise ValueError("local_affine goes with sqword, not with spos")
+    if spos is not None and len(spos) != 3:
+        raise ValueError("spos must be three streams (px, py, pz)")
+    if local_affine is not None and qbits != 10:
         raise ValueError("the exact-local form needs qbits == 10")
+    if spos is None and local_affine is None \
+            and not (1 <= qbits and 3 * qbits <= 32):
+        raise ValueError(f"the quantized form needs 3 * qbits <= 32, got "
+                         f"qbits={qbits}")
     if not supports_fused_reduce(skey.shape[0], tile_len, len(fields)):
         raise ValueError(f"unsupported fused reduce: n={skey.shape[0]}, "
                          f"tile_len={tile_len}, fields={len(fields)}")
+    if spos is not None:
+        return _EXACT_F32
+    return _EXACT_LOCAL if local_affine is not None else _QUANTIZED
+
+
+def _scale_q(qbits: int, qwindow: float) -> float:
+    """Width of one residual step in leaves, rounded to f32 once: a host
+    scalar for the kernel and the plain version alike."""
+    return float(np.float32(float(qwindow) / float(1 << qbits)))
+
+
+def _leaf_f32(leaf_size) -> float:
+    return float(np.float32(float(leaf_size)))
 
 
 def _field_mask(width: int) -> int:
@@ -107,17 +155,12 @@ def fused_sorted_voxel_reduce_plain(
         spos=None, local_affine=None):
     """Plain PyTorch version of :func:`fused_sorted_voxel_reduce_rows`
     (``out_word`` in carrier form)."""
-    _check_args(skey, tile_len, fields, qbits, spos, local_affine)
+    form = _check_args(skey, tile_len, fields, qbits, sqword, spos,
+                       local_affine)
     key = u32_carrier(skey)
     word = u32_carrier(sword)
-    rword = u32_carrier(sqword)
     dev = key.device
     n = key.shape[0]
-    scale, rot, trans, coeffs = local_affine
-    scale = _f32(scale, dev).reshape(3)
-    rot = _f32(rot, dev).reshape(3, 3)
-    trans = _f32(trans, dev).reshape(3)
-    coef = torch.as_tensor(coeffs, device=dev).to(torch.int32)
 
     valid = key != _INVALID
     idx = torch.arange(n, device=dev)
@@ -134,8 +177,6 @@ def fused_sorted_voxel_reduce_plain(
         return out[:n]
 
     cnt = torch.clamp(seg_sum(torch.ones_like(key)), min=1).to(torch.float32)
-    qmeans = [seg_sum((rword >> sh) & 1023).to(torch.float32) / cnt
-              for sh in (20, 10, 0)]
 
     out_word = torch.zeros(n, dtype=torch.int64, device=dev)
     if mode_bits:
@@ -153,14 +194,40 @@ def fused_sorted_voxel_reduce_plain(
         t = torch.clamp(t, float(imin), float(imax))
         out_word = out_word | ((t.to(torch.int64) & _field_mask(fw)) << fsh)
 
-    # key of each voxel: its run's first row, moved to the voxel's slot
-    vkey = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-    vkey.index_copy_(0, torch.where(first, seg, torch.full_like(seg, n)), key)
-    cells = [c.to(torch.int32) for c in morton_decode_u32(vkey[:n])]
-    ml = [(_int_cell_base(coef, *cells, a).to(torch.float32) + qmeans[a])
-          * scale[a] for a in range(3)]
-    pos = [rot[a, 0] * ml[0] + rot[a, 1] * ml[1] + rot[a, 2] * ml[2]
-           + trans[a] for a in range(3)]
+    if form == _EXACT_F32:
+        cnt64 = cnt.to(torch.float64)
+        pos = []
+        for c in spos:
+            acc = torch.zeros(n + 1, dtype=torch.float64, device=dev)
+            acc.index_add_(0, dump, torch.where(
+                valid, c.to(torch.float64),
+                torch.zeros((), dtype=torch.float64, device=dev)))
+            pos.append((acc[:n] / cnt64).to(torch.float32))
+    else:
+        rword = u32_carrier(sqword)
+        q = 10 if form == _EXACT_LOCAL else qbits
+        qmeans = [seg_sum((rword >> sh) & _field_mask(q)).to(torch.float32)
+                  / cnt for sh in (2 * q, q, 0)]
+        # key of each voxel: its run's first row, moved to the voxel's slot
+        vkey = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        vkey.index_copy_(0, torch.where(first, seg, torch.full_like(seg, n)),
+                         key)
+        cells = [c.to(torch.int32) for c in morton_decode_u32(vkey[:n])]
+        if form == _EXACT_LOCAL:
+            scale, rot, trans, coeffs = local_affine
+            scale = _f32(scale, dev).reshape(3)
+            rot = _f32(rot, dev).reshape(3, 3)
+            trans = _f32(trans, dev).reshape(3)
+            coef = torch.as_tensor(coeffs, device=dev).to(torch.int32)
+            ml = [(_int_cell_base(coef, *cells, a).to(torch.float32)
+                   + qmeans[a]) * scale[a] for a in range(3)]
+            pos = [rot[a, 0] * ml[0] + rot[a, 1] * ml[1] + rot[a, 2] * ml[2]
+                   + trans[a] for a in range(3)]
+        else:
+            bmin = _f32(bounds_min, dev).reshape(3)
+            leaf, scale_q = _leaf_f32(leaf_size), _scale_q(qbits, qwindow)
+            pos = [(cells[a].to(torch.float32) + (qmeans[a] + 0.5) * scale_q)
+                   * leaf + bmin[a] for a in range(3)]
     live = idx < num_voxels
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     rows = torch.where(live[:, None], torch.stack(pos, dim=1), zero)
@@ -174,14 +241,24 @@ def fused_sorted_voxel_reduce_rows(
         fields: Sequence[Tuple[int, int, bool, int, int]], qbits: int,
         qwindow: float, tile_len: int, semantics: str = "floor",
         spos: Optional[tuple] = None, local_affine: Optional[tuple] = None):
-    """All post-sort voxel work of the exact-local path.  ``skey``,
-    ``sword``, ``sqword`` are the tile-sorted u32 streams (either form);
-    ``fields`` lists the mean fields packed in ``sword`` below the top
-    ``mode_bits`` as ``(shift, width, signed, min, max)``;
-    ``local_affine=(scale, rot, trans, coeffs)`` with the SAME
-    ``exact_local_base_coeffs`` tensor the head used.  ``bounds_min``,
-    ``leaf_size``, ``qwindow`` and ``semantics`` belong to the forms that
-    are not ported yet and are not read.
+    """All post-sort voxel work of the fast path.  ``skey``, ``sword`` are
+    the tile-sorted u32 streams (either form); ``fields`` lists the mean
+    fields packed in ``sword`` below the top ``mode_bits`` as ``(shift,
+    width, signed, min, max)``.  Positions, one of three forms:
+
+    * ``sqword`` — the QUANTIZED form: a word of three ``qbits``-bit
+      residuals of window ``qwindow`` leaves (1.0 floor, 1.5 nearest); the
+      centroid is rebuilt from the key's cell, ``bounds_min`` and
+      ``leaf_size``;
+    * ``sqword`` + ``local_affine=(scale, rot, trans, coeffs)`` — the
+      EXACT-LOCAL form, with the SAME ``exact_local_base_coeffs`` tensor
+      the head used (``qbits`` must be 10; ``bounds_min``, ``leaf_size``,
+      ``qwindow`` are not read);
+    * ``spos=(px, py, pz)`` with ``sqword=None`` — the EXACT-f32 form: three
+      sorted f32 streams, the centroid their mean (``qbits`` is not read).
+
+    ``semantics`` is accepted for the shape of the function this is ported
+    from; the window it implies arrives as ``qwindow``.
 
     Returns ``(pos, out_word, num_voxels)``: rows ``[0, num_voxels)`` of
     the (N, 3) f32 ``pos`` and of ``out_word`` hold the voxels in (tile,
@@ -194,27 +271,49 @@ def fused_sorted_voxel_reduce_rows(
         return fused_sorted_voxel_reduce_plain(
             skey, sword, sqword, bounds_min, leaf_size, mode_bits, fields,
             qbits, qwindow, tile_len, semantics, spos, local_affine)
-    _check_args(skey, tile_len, fields, qbits, spos, local_affine)
+    form = _check_args(skey, tile_len, fields, qbits, sqword, spos,
+                       local_affine)
     dev = skey.device
     key = u32_bits(skey).contiguous()
     word = u32_bits(sword).contiguous()
-    rword = u32_bits(sqword).contiguous()
+    if form == _EXACT_F32:
+        if any(c.dtype != torch.float32 for c in spos):
+            raise TypeError("spos streams must be float32")
+        rest = [c.contiguous() for c in spos]
+    else:
+        rest = [u32_bits(sqword).contiguous()]
     n = key.shape[0]
-    if word.shape != key.shape or rword.shape != key.shape \
-            or word.device != dev or rword.device != dev:
+    if any(t.shape != key.shape or t.device != dev for t in [word] + rest):
         raise ValueError("streams must be 1-D, of one length, on one device")
     tiles = n // tile_len
-    scale, rot, trans, coeffs = local_affine
-    params = torch.cat([_f32(scale, dev).reshape(3),
-                        _f32(rot, dev).reshape(9),
-                        _f32(trans, dev).reshape(3)]).contiguous()
-    coef = torch.as_tensor(coeffs, device=dev).to(torch.int32).contiguous()
+    params = coef = None
+    if form == _EXACT_LOCAL:
+        scale, rot, trans, coeffs = local_affine
+        params = torch.cat([_f32(scale, dev).reshape(3),
+                            _f32(rot, dev).reshape(9),
+                            _f32(trans, dev).reshape(3)]).contiguous()
+        coef = torch.as_tensor(coeffs, device=dev).to(
+            torch.int32).contiguous()
+        if coef.numel() != 15:
+            raise ValueError("coeffs must hold 15 int32 values")
+    elif form == _QUANTIZED:
+        # leaf and the residual step are host scalars: filled in on the
+        # device, no copy from host memory that would wait for the stream
+        params = torch.cat([
+            _f32(bounds_min, dev).reshape(3),
+            torch.full((1,), _leaf_f32(leaf_size), dtype=torch.float32,
+                       device=dev),
+            torch.full((1,), _scale_q(qbits, qwindow), dtype=torch.float32,
+                       device=dev)]).contiguous()
     nf = len(fields)
     f_ints = (ctypes.c_int * (3 * MAX_FIELDS))()
     f_floats = (ctypes.c_float * (2 * MAX_FIELDS))()
     for i, (fsh, fw, fsigned, imin, imax) in enumerate(fields):
         f_ints[3 * i:3 * i + 3] = [int(fsh), int(fw), int(bool(fsigned))]
         f_floats[2 * i:2 * i + 2] = [float(imin), float(imax)]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
 
     counts = torch.empty(tiles, dtype=torch.int32, device=dev)
     pos = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -228,15 +327,17 @@ def fused_sorted_voxel_reduce_rows(
         # tile offsets: an exclusive scan of 'tiles' integers
         incl = torch.cumsum(counts, 0, dtype=torch.int32)
         offsets = (incl - counts).contiguous()
+        # streams 3 to 5: the residual word and two nulls, or px, py, pz
+        operands = [ptr(c) for c in rest] + [None] * (3 - len(rest))
         code = lib.voxel_reduce_write_launch(
-            key.data_ptr(), word.data_ptr(), rword.data_ptr(), tiles,
-            tile_len, offsets.data_ptr(), params.data_ptr(),
-            coef.data_ptr(), int(mode_bits), nf,
+            form, key.data_ptr(), word.data_ptr(), *operands, tiles,
+            tile_len, offsets.data_ptr(), ptr(params), ptr(coef),
+            int(qbits) if form == _QUANTIZED else 0, int(mode_bits), nf,
             ctypes.cast(f_ints, ctypes.c_void_p),
             ctypes.cast(f_floats, ctypes.c_void_p),
             pos.data_ptr(), out_word.data_ptr(), _build.stream())
         _build.check(code, "fused_sorted_voxel_reduce (write)")
-    LAUNCHES["fused_sorted_voxel_reduce"] += 1
+    LAUNCHES[_FORM_COUNTER[form]] += 1
     return pos, out_word, incl[-1]
 
 

@@ -8,15 +8,21 @@ Morton-key sorts.
 
 Two paths:
 
-* the **generic exact path** — plain PyTorch: one lexicographic sort by
-  (cell key, packed word), segment ids from key changes, and scatter
-  reductions (``index_add_``, ``scatter_reduce_``) on those ids.  Segment
-  ids are dense and ordered, so a voxel's id IS its output row: the result
-  is compacted as it is reduced.  This path is the package's own oracle.
-* the **fast path** for ``precomputed=(keys, resword)`` +
-  ``local_affine=`` — the hand kernels: ``tile_sort`` then
+* the **generic path** — plain PyTorch: one lexicographic sort by (cell
+  key, packed word), segment ids from key changes, and scatter reductions
+  (``index_add_``, ``scatter_reduce_``) on those ids.  Segment ids are dense
+  and ordered, so a voxel's id IS its output row: the result is compacted
+  as it is reduced (the voxels' keys by ``compact_columns``, on the GPU the
+  ``blockwise_compact`` kernel).  This path is the package's own oracle.
+* the **fast path** — the hand kernels ``tile_sort`` then
   ``fused_sorted_voxel_reduce`` (ops/kernels), which on a CPU tensor run
-  their plain versions.
+  their plain versions.  It takes a call whose grid fits one u32 Morton key
+  (``grid_bits <= 10``), whose payload fits the packed word, and whose
+  positions come in one of the reduce kernel's three forms: the exact-local
+  residual word (``precomputed=(keys, resword)`` + ``local_affine=``), the
+  quantized residual word (``position_quantization_bits``, with or without
+  ``precomputed=(keys, qword)``), or the f32 position column itself (the
+  exact-f32 form, with or without ``precomputed=(keys, None)``).
 
 Per-attribute reduction policies reproduce set_all_attributes
 (voxel_grid.rs:443-700):
@@ -65,6 +71,7 @@ from ..math.morton import (_expand10_u32, morton_decode_u32,
 from .compact import compact_columns
 from .convert import (rust_as_cast_device, u32_bits, u32_carrier,
                       wrap_to_logical)
+from .kernels.compact_kernel import blockwise_compact_plain
 from .kernels.fused_transform import _f32, _int_cell_base
 from .kernels.tile_sort_kernel import (lex_order, supports_tile_sort,
                                        tile_sort)
@@ -257,6 +264,23 @@ def voxel_downsample(batch: PointBatch, leaf_size,
     (tile, voxel).  Output voxels are ordered by (tile, Morton) instead of
     global Morton.
 
+    ``position_quantization_bits=q`` (with ``grid_bits <= 10``,
+    ``3 * q <= 32``, a float position column under the ``mean`` policy):
+    the QUANTIZED path — each point's in-cell residual is kept in q bits
+    per axis (window [0, 1) leaves for ``floor``, [0, 1.5) for ``nearest``),
+    three of them packed into one u32 sort operand, and the centroid is the
+    cell plus the mean residual, within ``1.5 * leaf / 2**q`` of the exact
+    mean.  When one of those conditions fails the call silently runs the
+    exact path.  ``precomputed=(morton_keys, qword)`` takes keys and
+    residual words as given (paired with kernels ``fused_voxel_head``; the
+    batch then needs no position column); it requires the quantized path
+    and explicit ``bounds``.
+    ``precomputed=(morton_keys, None)`` is the EXACT-f32 variant (paired
+    with kernels ``fused_decode_transform_key``): keys are taken as given,
+    the batch's position column rides the sort as f32 operands, and
+    centroids are segmented means.  Requires ``grid_bits <= 10`` and
+    explicit ``bounds`` (the keys' grid anchor).
+
     ``precomputed=(morton_keys, resword)`` WITH ``local_affine=(scale,
     rot, trans, coeffs)`` — ``coeffs`` being the SAME
     kernels.exact_local_base_coeffs tensor the head used — is the
@@ -272,18 +296,17 @@ def voxel_downsample(batch: PointBatch, leaf_size,
     or bits (int32) form.
 
     ``fused`` (keyword only, default on) takes the hand kernels where the
-    call is eligible — ``tile_sort`` for a tiled sort on the GPU, and
-    ``tile_sort`` + ``fused_sorted_voxel_reduce`` for the whole exact-local
-    path when every payload is packed in the word, the fused mode column is
-    unsigned and the tile fits the kernel (on a CPU batch their plain
-    versions run).  ``fused=False`` runs the generic path in plain PyTorch
-    all the way: the oracle the fast path is held against.
+    call is eligible — ``tile_sort`` for a tiled sort on the GPU,
+    ``blockwise_compact`` for the generic path's key compaction on the GPU,
+    and ``tile_sort`` + ``fused_sorted_voxel_reduce`` for the whole
+    exact-local, quantized or exact-f32 path when the key is one u32, every
+    other payload is packed in the word, the fused mode column is unsigned
+    and the tile fits the kernel (on a CPU batch their plain versions run).
+    ``fused=False`` runs the generic path in plain PyTorch all the way: the
+    oracle the fast path is held against.
 
     Not ported yet (``NotImplementedError``): ``with_aux`` and
-    ``mode_runs`` (file -> map slice: two-stage merge statistics),
-    ``position_quantization_bits`` and ``precomputed=(keys, qword)``
-    without ``local_affine`` (quantized-path slice),
-    ``precomputed=(keys, None)`` (exact-f32 slice).
+    ``mode_runs`` (file -> map slice: two-stage merge statistics).
 
     Example — four corner points collapse to two 1m voxels, centroids =
     per-voxel means (reference ``voxelgrid_filter``, voxel_grid.rs:109-165):
@@ -345,15 +368,6 @@ def voxel_downsample(batch: PointBatch, leaf_size,
         raise NotImplementedError(
             "voxel_downsample(with_aux=/mode_runs=): the merge statistics "
             "arrive with the file -> map slice (merge_voxel_batches)")
-    if position_quantization_bits is not None:
-        raise NotImplementedError(
-            "voxel_downsample(position_quantization_bits=): the quantized "
-            "path arrives with the quantized-path slice (fused_voxel_head)")
-    if pre_exact:
-        raise NotImplementedError(
-            "voxel_downsample(precomputed=(keys, None)): the exact-f32 "
-            "precomputed path arrives with the exact-f32 slice "
-            "(fused_decode_transform_key)")
 
     pol = dict(DEFAULT_POLICIES)
     if policies:
@@ -383,28 +397,50 @@ def voxel_downsample(batch: PointBatch, leaf_size,
     tile_len = cap // sort_tiles
     invalid = torch.full((), _INVALID_KEY, dtype=torch.int64, device=dev)
 
-    if exact_local:
-        # the words stay in the form they came in (the head kernel's bits
+    qbits = position_quantization_bits
+    qwindow = 1.5 if semantics == "nearest" else 1.0
+    if pre:
+        # the words stay in the form they came in (a head kernel's bits
         # form goes to the sort kernel as it is); the generic path turns
         # them into carriers below
-        pkeys, rword = precomputed
+        pkeys, qword = precomputed
         bits = pkeys.dtype == torch.int32
         keys = [torch.where(mask, pkeys,
                             torch.full((), -1, dtype=torch.int32, device=dev)
                             if bits else invalid)]
+        quantize_pos = not pre_exact and not exact_local
+        if exact_local:
+            qbits = 10   # the residual word's layout
+        cells = None
     else:
         cells = voxel_indices(pos, mask, leaf_size, bmin, semantics,
                               grid_bits)
         keys = _keys(cells, mask, grid_bits)
-        rword = None
+        quantize_pos = (
+            qbits is not None and grid_bits <= 10 and 3 * qbits <= 32
+            and pos.dtype.is_floating_point
+            and policy_of(position_attribute) == "mean")
+        qword = None
     nk = len(keys)
+    if quantize_pos and not pre:
+        leaf = torch.as_tensor(leaf_size, device=dev).to(pdt).expand(3)
+        u = (pos - bmin.to(pdt)[None, :]) / leaf[None, :]
+        # residual window relative to the (clipped) cell: [0, 1) for floor;
+        # [0, 1.5) for nearest (the low-edge clamp of voxel_indices puts
+        # cell-0 residuals in [0, 0.5))
+        r = u - cells.to(pdt)
+        qv = torch.clamp(torch.floor(r * ((1 << qbits) / qwindow)), 0,
+                         (1 << qbits) - 1).to(torch.int64)
+        qword = (qv[:, 0] << (2 * qbits)) | (qv[:, 1] << qbits) | qv[:, 2]
+    carry_q = quantize_pos or exact_local
 
     # ---- the packed word and the loose operands ---------------------------
     mode_names = [n for n in batch.data if policy_of(n) == "mode"]
     fused_mode = next((n for n in mode_names
                        if _is_int(ldt[n]) and _width(ldt[n]) <= 32), None)
     carry_data = {name: col for name, col in batch.data.items()
-                  if policy_of(name) != "mode"}
+                  if policy_of(name) != "mode"
+                  and not (quantize_pos and name == position_attribute)}
     ops, layout = _flatten_cols(carry_data)
     flat_names = [name for name, c in layout for _ in range(c)]
 
@@ -429,10 +465,18 @@ def voxel_downsample(batch: PointBatch, leaf_size,
         else:
             loose_idx.append(i)
 
-    # ---- fast path: tile_sort + fused reduce (exact-local) -----------------
+    # ---- fast path: tile_sort + fused reduce -------------------------------
     scalar_leaf = np.ndim(leaf_size) == 0
+    # exact-f32 form: the three f32 position components are the ONLY loose
+    # sort operands (a position column beside exact-local words is ignored
+    # there as in the generic path, which takes the centroid from the words)
+    exact_pos_fused = (
+        not carry_q and pos is not None and pdt == torch.float32
+        and len(loose_idx) == 3
+        and all(flat_names[i] == position_attribute for i in loose_idx)
+        and policy_of(position_attribute) == "mean")
     can_fuse = (
-        exact_local and not loose_idx and nk == 1
+        (carry_q and not loose_idx or exact_pos_fused) and nk == 1
         and packed_word is not None and scalar_leaf
         and all(policy_of(flat_names[i]) == "mean"
                 and carry_data[flat_names[i]].ndim == 1
@@ -445,18 +489,27 @@ def voxel_downsample(batch: PointBatch, leaf_size,
         fields = tuple((shift, w, dt_.kind == "i",
                         int(np.iinfo(dt_).min), int(np.iinfo(dt_).max))
                        for _, shift, w, dt_ in pack_plan)
-        operands = (keys[0], packed_word, rword)
+        operands = (keys[0], packed_word) + (
+            tuple(ops[i] for i in loose_idx) if exact_pos_fused
+            else (qword,))
         if dev.type == "cuda" and sort_tiles > 1 \
-                and supports_tile_sort(cap, tile_len, 3):
-            skey, sword, srword = tile_sort(
-                [u32_bits(o) for o in operands], tile_len, num_keys=2)
+                and supports_tile_sort(cap, tile_len, len(operands)):
+            sorted_ops = tile_sort(
+                [o.view(torch.int32) if o.dtype == torch.float32
+                 else u32_bits(o) for o in operands], tile_len, num_keys=2)
         else:
-            skey, sword, srword = _tiled_sort(operands, 2, sort_tiles,
-                                              False)
-        vpos, oword, num_voxels = fused_sorted_voxel_reduce_rows(
-            skey, sword, srword, _f32(bmin, dev), leaf_size, mode_bits,
-            fields, 10, 1.5 if semantics == "nearest" else 1.0, tile_len,
-            semantics, local_affine=local_affine)
+            sorted_ops = _tiled_sort(operands, 2, sort_tiles, False)
+        skey, sword = sorted_ops[:2]
+        if exact_pos_fused:
+            spos = tuple(s.view(torch.float32) for s in sorted_ops[2:])
+            vpos, oword, num_voxels = fused_sorted_voxel_reduce_rows(
+                skey, sword, None, _f32(bmin, dev), leaf_size, mode_bits,
+                fields, 0, qwindow, tile_len, semantics, spos=spos)
+        else:
+            vpos, oword, num_voxels = fused_sorted_voxel_reduce_rows(
+                skey, sword, sorted_ops[2], _f32(bmin, dev), leaf_size,
+                mode_bits, fields, qbits, qwindow, tile_len, semantics,
+                local_affine=local_affine)
         reduced_f: Dict[str, torch.Tensor] = {
             position_attribute: vpos.to(pdt)}
         for i, shift, w, dt_ in pack_plan:
@@ -470,18 +523,17 @@ def voxel_downsample(batch: PointBatch, leaf_size,
                           batch.policy)
 
     # ---- generic path: sort, segment ids, scatter reductions ---------------
-    if exact_local:
+    if pre:
         keys = [u32_carrier(keys[0])]
-        rword = u32_carrier(rword)
     extra_keys = (packed_word,) if packed_word is not None else ()
     loose_ops = tuple(ops[i] for i in loose_idx)
-    extra_vals = (rword,) if exact_local else ()
+    extra_vals = (u32_carrier(qword),) if carry_q else ()
     sorted_all = _tiled_sort(
         tuple(keys) + extra_keys + loose_ops + extra_vals,
         nk + len(extra_keys), sort_tiles, fused)
     skeys = sorted_all[:nk]
     sword = sorted_all[nk] if packed_word is not None else None
-    srword = sorted_all[-1] if exact_local else None
+    sqword = sorted_all[-1] if carry_q else None
 
     sorted_ops: List = [None] * len(ops)
     for j, i in enumerate(loose_idx):
@@ -513,7 +565,8 @@ def voxel_downsample(batch: PointBatch, leaf_size,
     # a voxel's segment id is its output row; invalid rows go to a spare slot
     seg = torch.cumsum(first.to(torch.int64), 0) - 1
     slot = torch.where(valid, seg, torch.full_like(seg, cap))
-    vkeys, num_voxels = compact_columns(list(skeys), first)
+    vkeys, num_voxels = (compact_columns if fused
+                         else blockwise_compact_plain)(list(skeys), first)
 
     def seg_sum(v, acc):
         out = torch.zeros((cap + 1,) + tuple(v.shape[1:]), dtype=acc,
@@ -541,7 +594,22 @@ def voxel_downsample(batch: PointBatch, leaf_size,
         cnt = counts.to(acc).reshape((cap,) + (1,) * (c.ndim - 1))
         reduced[n] = _cast_as(sums / cnt, ldt[n])
 
-    if exact_local:
+    if quantize_pos:
+        # centroid = cell (decoded from the voxel's Morton key) + unbiased
+        # mean of the centred q-bit residuals
+        cnt = counts.to(torch.float32)
+        leaf3 = torch.as_tensor(leaf_size, device=dev).to(pdt).expand(3)
+        cxyz = morton_decode_u32(vkeys[0])
+        comps = []
+        for a, sh in enumerate((2 * qbits, qbits, 0)):
+            qs = seg_sum((sqword >> sh) & ((1 << qbits) - 1), torch.int64)
+            mean_r = (qs.to(torch.float32) / cnt + 0.5) \
+                * (qwindow / (1 << qbits))
+            ci = cxyz[a]
+            comps.append((ci.to(pdt) + mean_r.to(pdt)) * leaf3[a]
+                         + bmin[a].to(pdt))
+        reduced[position_attribute] = torch.stack(comps, dim=1)
+    elif exact_local:
         # centroid = affine image of the EXACT local mean: per-cell base
         # (the SAME integer fixed-point expression the head encoded
         # residuals against) + exact mean of the 10-bit integer residuals,
@@ -555,7 +623,7 @@ def voxel_downsample(batch: PointBatch, leaf_size,
         cxyz = [c.to(torch.int32) for c in morton_decode_u32(vkeys[0])]
         ml = []
         for a, sh in enumerate((20, 10, 0)):
-            qsum = seg_sum((srword >> sh) & 1023, torch.int64)
+            qsum = seg_sum((sqword >> sh) & 1023, torch.int64)
             base = _int_cell_base(coef, *cxyz, a).to(torch.float32)
             ml.append((base + qsum.to(torch.float32) / cnt) * la_scale[a])
         comps = [la_rot[a, 0] * ml[0] + la_rot[a, 1] * ml[1]

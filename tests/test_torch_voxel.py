@@ -1,7 +1,8 @@
 """Voxel downsampling of pasture_tpu_torch against the JAX package on the
 same numpy inputs (CPU): the generic path, the reduce kernel's plain version
-against the Pallas kernel in interpret mode, and the exact transform +
-voxelize slice as a whole."""
+against the Pallas kernel in interpret mode (all three position forms), the
+quantized and the exact-f32 paths with and without precomputed keys, and
+the exact transform + voxelize slice as a whole."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +21,7 @@ from pasture_tpu_torch import interop
 from pasture_tpu_torch.buffers import PointBatch
 from pasture_tpu_torch.layout import attributes as att
 from pasture_tpu_torch.ops import voxel_downsample
+from pasture_tpu_torch.ops.kernels import fused_transform as ft
 from pasture_tpu_torch.ops.kernels import voxel_reduce_kernel as vr
 
 T = torch.from_numpy
@@ -153,12 +155,14 @@ def test_voxel_downsample_argument_errors(rng):
         jvoxel.voxel_downsample(
             jb.with_column(wf, jnp.zeros(n, jnp.uint32)), 1.0)
     # later slices
-    for kw in (dict(with_aux=True), dict(with_aux=True, mode_runs=True),
-               dict(position_quantization_bits=10),
-               dict(precomputed=(keys, None), grid_bits=10,
-                    bounds=(zero, None))):
+    for kw in (dict(with_aux=True), dict(with_aux=True, mode_runs=True)):
         with pytest.raises(NotImplementedError, match="slice"):
             voxel_downsample(pb, 1.0, **kw)
+    # the quantized and the exact-f32 precomputed paths no longer refuse
+    for kw in (dict(position_quantization_bits=10),
+               dict(precomputed=(keys, None), grid_bits=10,
+                    bounds=(zero, None))):
+        assert int(voxel_downsample(pb, 1.0, **kw).count) > 0
 
 
 # ---- exact-local inputs --------------------------------------------------------
@@ -261,11 +265,20 @@ def test_voxel_reduce_plain_matches_pallas_interpret(rng):
                                    rtol=0, atol=1e-4)
         assert not g.numpy()[nv:].any()       # rows past the count are zero
     assert not pword.numpy()[nv:].any()
-    with pytest.raises(NotImplementedError, match="slice"):
-        vr.fused_sorted_voxel_reduce(
-            T(skey.astype(np.int64)), T(sword.astype(np.int64)),
-            T(srw.astype(np.int64)), T(np.asarray(bmin)), leaf, 8, fields,
-            10, 1.0, tile_len, semantics)
+    # the position operands come in exactly one form
+    streams = (T(skey.astype(np.int64)), T(sword.astype(np.int64)),
+               T(srw.astype(np.int64)))
+    tail = (T(np.asarray(bmin)), leaf, 8, fields, 10, 1.0, tile_len,
+            semantics)
+    f = torch.zeros(n)
+    for kw in (dict(spos=(f, f, f)),
+               dict(spos=(f, f, f), local_affine=paffine)):
+        with pytest.raises(ValueError, match="sqword"):
+            vr.fused_sorted_voxel_reduce(*streams, *tail, **kw)
+    with pytest.raises(ValueError, match="sqword"):
+        vr.fused_sorted_voxel_reduce(*streams[:2], None, *tail)
+    with pytest.raises(ValueError, match="qbits"):
+        vr.fused_sorted_voxel_reduce(*streams, *tail[:4], 11, *tail[5:])
 
 
 # ---- the slice as a whole -------------------------------------------------------
@@ -317,3 +330,269 @@ def test_exact_transform_voxelize_slice_matches_jax(rng):
     err = np.linalg.norm(got.data[POS][:nv].numpy() - oracle, axis=1).max()
     assert err < 5e-4
 
+
+
+# ---- the quantized and the exact-f32 paths ------------------------------------
+
+def _slab_columns(rng, n, tiles):
+    """Positions in ``tiles`` spatially disjoint x slabs (tiled == global),
+    a u16 mean column and a u8 mode column."""
+    per = n // tiles
+    pos = np.concatenate([np.stack([
+        rng.uniform(4 * i, 4 * i + 4, per), rng.uniform(0, 64, per),
+        rng.uniform(0, 64, per)], axis=1) for i in range(tiles)]
+    ).astype(np.float32)
+    return {POS: pos, INT: rng.integers(0, 65536, n).astype(np.uint16),
+            CLS: rng.integers(0, 32, n).astype(np.uint8)}
+
+
+def _jax_forced(fused, fn):
+    jvoxel._FORCE_FUSED_REDUCE = fused
+    try:
+        return fn()
+    finally:
+        jvoxel._FORCE_FUSED_REDUCE = None
+
+
+SLAB_NAMES = (POS, INT, CLS)
+ZERO3 = np.zeros(3, np.float32)
+
+
+@pytest.mark.parametrize("semantics,qbits", [("floor", 10), ("nearest", 10),
+                                             ("floor", 8), (None, None)])
+def test_fast_paths_match_jax_generic_path(rng, semantics, qbits):
+    """The quantized path (internal quantizer) and, with ``qbits`` None, the
+    exact-f32 path, 8192 points in 4 tiles: the port's fast path (plain
+    versions of tile_sort and the reduce kernel) and its generic path,
+    each against the JAX package's generic path."""
+    n, tiles = 8192, 4
+    exact = qbits is None
+    semantics = semantics or "floor"
+    jb = _jax_batch(_slab_columns(rng, n, tiles), n - 300, SLAB_NAMES)
+    pb = _port_batch(jb, SLAB_NAMES)
+    kw = dict(semantics=semantics, grid_bits=10, sort_tiles=tiles,
+              position_quantization_bits=qbits)
+    want = _jax_forced(False, lambda: jvoxel.voxel_downsample(
+        jb, 2.0, bounds=(jnp.asarray(ZERO3), None), **kw))
+    # tests/test_pallas_kernels.py holds the JAX package's own two paths to
+    # these bounds: atol 2e-5 (quantized), 1e-4 (f32 sums in another order)
+    tol = dict(rtol=1e-6, atol=1e-4 if exact else 2e-5)
+    outs = {}
+    for fused in (True, False):
+        got = voxel_downsample(pb, 2.0, bounds=(T(ZERO3), None), fused=fused,
+                               **kw)
+        nv = _assert_batches_agree(want, got, tol)
+        assert not got.data[POS][nv:].any()
+        outs[fused] = got
+    # the two paths of the port: integer columns equal, centroids equal for
+    # the quantized form (exact integer sums, the same f32 operations)
+    for name in (INT, CLS):
+        assert torch.equal(outs[True].data[name], outs[False].data[name])
+    if not exact:
+        assert torch.equal(outs[True].data[POS], outs[False].data[POS])
+        # quantization moves a centroid by at most 1.5 * leaf / 2**q
+        exact_out = voxel_downsample(pb, 2.0, bounds=(T(ZERO3), None),
+                                     semantics=semantics, grid_bits=10,
+                                     sort_tiles=tiles)
+        dev = (outs[True].data[POS] - exact_out.data[POS]).abs().max()
+        assert 0 < float(dev) <= 1.5 * 2.0 / (1 << qbits) + 1e-5
+
+
+@pytest.mark.parametrize("qbits", [10, None])
+def test_fast_paths_match_jax_fused_reduce(rng, qbits):
+    """One 65 536-row block in 16 tiles through the JAX package's fused
+    Pallas reduce (interpret mode), quantized (``qbits`` 10) and exact-f32
+    (None), against the port's fast path."""
+    n, tiles = jvr.REDUCE_BLOCK, 16
+    jb = _jax_batch(_slab_columns(rng, n, tiles), n - 1000, SLAB_NAMES)
+    pb = _port_batch(jb, SLAB_NAMES)
+    kw = dict(semantics="floor", grid_bits=10, sort_tiles=tiles,
+              position_quantization_bits=qbits)
+    want = _jax_forced(True, lambda: jvoxel.voxel_downsample(
+        jb, 2.0, bounds=(jnp.asarray(ZERO3), None), **kw))
+    got = voxel_downsample(pb, 2.0, bounds=(T(ZERO3), None), **kw)
+    _assert_batches_agree(
+        want, got, dict(rtol=1e-6, atol=1e-4 if qbits is None else 2e-5))
+
+
+def _quantized_oracle(keys, qword, qbits, window, leaf, bmin):
+    """f64 centroid of every voxel from the head's own keys and residual
+    words, in Morton order (the oracle of tests/test_pallas_kernels.py)."""
+    uniq, inverse, counts = np.unique(keys, return_inverse=True,
+                                      return_counts=True)
+    from pasture_tpu.math.morton import morton_decode_u32
+    cells = np.stack([np.asarray(c) for c in morton_decode_u32(
+        jnp.asarray(uniq.astype(np.uint32)))], axis=1).astype(np.float64)
+    qm = (1 << qbits) - 1
+    qs = np.stack([(qword >> (2 * qbits)) & qm, (qword >> qbits) & qm,
+                   qword & qm], axis=1).astype(np.float64)
+    mean = np.stack([np.bincount(inverse, weights=qs[:, a])
+                     for a in range(3)], axis=1) / counts[:, None]
+    return (cells + (mean + 0.5) * (window / (1 << qbits))) * leaf + bmin
+
+
+@pytest.mark.parametrize("semantics", ["floor", "nearest"])
+def test_quantized_precomputed_path_matches_jax(rng, semantics):
+    """fused_voxel_head (Pallas, interpret mode) -> voxel_downsample(
+    precomputed=(keys, qword)) in the JAX package, against the port fed the
+    same words, and the port's own head + downsample as a whole."""
+    from test_torch_heads_q import (BMIN, ROT, SCALE, TRANS, _jargs,
+                                    _off_faces, _pargs)
+    n, leaf, qbits = 32768, 0.5, 10
+    local = _off_faces(rng, leaf, semantics, qbits, n=n)
+    inten = rng.integers(0, 65536, n).astype(np.uint16)
+    cls = rng.integers(0, 32, n).astype(np.uint8)
+    keys, qword = jft.fused_voxel_head(*_jargs(local, leaf), qbits=qbits,
+                                       semantics=semantics, interpret=True)
+    jb = _jax_batch({INT: inten, CLS: cls}, n - 50, SLAB_NAMES)
+    pb = _port_batch(jb, SLAB_NAMES)
+    kw = dict(semantics=semantics, grid_bits=10,
+              position_quantization_bits=qbits)
+    want = _jax_forced(False, lambda: jvoxel.voxel_downsample(
+        jb, leaf, bounds=(jnp.asarray(BMIN), None),
+        precomputed=(keys, qword), **kw))
+    # (a) the same words, as carriers, through the port's generic path
+    words = tuple(T(np.asarray(w).astype(np.int64)) for w in (keys, qword))
+    got = voxel_downsample(pb, leaf, bounds=(T(BMIN), None),
+                           precomputed=words, **kw)
+    nv = _assert_batches_agree(want, got, dict(rtol=1e-6, atol=2e-5))
+    # (b) the port's own head (plain version): the same words on these
+    # off-face points; 8 tiles of one capacity keep the fast path eligible
+    # (a voxel may then span tiles, so the count is not compared)
+    pk, pq = ft.fused_voxel_head(*_pargs(local, leaf), qbits=qbits,
+                                 semantics=semantics)
+    assert torch.equal(pk, words[0]) and torch.equal(pq, words[1])
+    fast = voxel_downsample(pb, leaf, bounds=(T(BMIN), None),
+                            precomputed=(pk, pq), sort_tiles=8, **kw)
+    slow = voxel_downsample(pb, leaf, bounds=(T(BMIN), None),
+                            precomputed=(pk, pq), sort_tiles=8, fused=False,
+                            **kw)
+    assert int(fast.count) == int(slow.count) >= nv
+    for name in SLAB_NAMES:
+        assert torch.equal(fast.data[name], slow.data[name]), name
+    # (c) the f64 oracle built from the head's own words
+    oracle = _quantized_oracle(
+        np.asarray(keys)[:n - 50], np.asarray(qword)[:n - 50], qbits,
+        1.5 if semantics == "nearest" else 1.0, leaf, BMIN)
+    assert oracle.shape[0] == nv
+    err = np.linalg.norm(got.data[POS][:nv].numpy() - oracle, axis=1).max()
+    assert err < 1e-4
+
+
+def test_exact_f32_precomputed_path_matches_jax(rng):
+    """voxel_downsample(precomputed=(keys, None)): the position column rides
+    the sort, keys are taken as given — JAX generic path against the port's
+    fast and generic paths."""
+    n, tiles = 8192, 4
+    jb = _jax_batch(_slab_columns(rng, n, tiles), n - 123, SLAB_NAMES)
+    pb = _port_batch(jb, SLAB_NAMES)
+    cells = jvoxel.voxel_indices(jb.data[POS], jb.valid_mask(), 2.0,
+                                 jnp.asarray(ZERO3), "floor", 10)
+    keys = jvoxel._keys(cells, jb.valid_mask(), 10)[0]
+    kw = dict(semantics="floor", grid_bits=10, sort_tiles=tiles)
+    want = _jax_forced(False, lambda: jvoxel.voxel_downsample(
+        jb, 2.0, bounds=(jnp.asarray(ZERO3), None), precomputed=(keys, None),
+        **kw))
+    pkeys = T(np.asarray(keys).astype(np.int64))
+    for fused in (True, False):
+        got = voxel_downsample(pb, 2.0, bounds=(T(ZERO3), None),
+                               precomputed=(pkeys, None), fused=fused, **kw)
+        _assert_batches_agree(want, got, dict(rtol=1e-6, atol=1e-4))
+    # the same as computing the keys inside
+    inside = voxel_downsample(pb, 2.0, bounds=(T(ZERO3), None), **kw)
+    for name in SLAB_NAMES:
+        assert torch.equal(inside.data[name], got.data[name]) or \
+            name == POS
+    # NaN positions in the invalid tail contribute nothing
+    pos = pb.data[POS].clone()
+    pos[n - 123:] = float("nan")
+    nan_tail = voxel_downsample(pb.with_column(POS, pos), 2.0,
+                                bounds=(T(ZERO3), None),
+                                precomputed=(pkeys, None), **kw)
+    assert torch.isfinite(nan_tail.data[POS]).all()
+    assert int(nan_tail.count) == int(want.count)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(grid_bits=20, position_quantization_bits=10),
+    dict(grid_bits=10, position_quantization_bits=11),      # 3 * q > 32
+    dict(grid_bits=10, position_quantization_bits=10,
+         policies={POS: "max"}),
+], ids=["grid_bits_20", "qbits_11", "position_not_mean"])
+def test_quantization_falls_back_silently_to_the_exact_path(rng, kw):
+    """Where the quantized path does not apply the call runs the exact
+    path (the JAX package is asked once: each case compiles its own
+    program there)."""
+    n = 2048
+    jb = _jax_batch(_slab_columns(rng, n, 1), n - 77, SLAB_NAMES)
+    pb = _port_batch(jb, SLAB_NAMES)
+    exact_kw = {k: v for k, v in kw.items()
+                if k != "position_quantization_bits"}
+    got = voxel_downsample(pb, 2.0, bounds=(T(ZERO3), None), **kw)
+    exact = voxel_downsample(pb, 2.0, bounds=(T(ZERO3), None), **exact_kw)
+    for name in SLAB_NAMES:
+        assert torch.equal(got.data[name], exact.data[name]), name
+    if kw["position_quantization_bits"] == 11:
+        want = jvoxel.voxel_downsample(
+            jb, 2.0, bounds=(jnp.asarray(ZERO3), None), **kw)
+        _assert_batches_agree(want, got, dict(rtol=1e-6, atol=2e-5))
+
+
+# ---- the smoke script's further paths, rehearsed on the CPU -------------------
+
+def test_smoke_paths_agree_with_the_generic_path_on_the_cpu(rng):
+    """The three further paths of the GPU smoke script at 32 768 points in
+    64 tiles, through the same functions, each against the port's generic
+    path (on the CPU the wrappers run their plain versions)."""
+    n, zt, xt = 32768, 8, 8
+    tiles = zt * xt
+    local, inten, cls = chip_smoke.make_columns(n, zt, xt)
+    batch = chip_smoke.make_batch(local, inten, cls, device="cpu")
+    affine = chip_smoke.affine_on("cpu")
+
+    def same(a, b, atol):
+        nv = int(a.count)
+        assert nv == int(b.count) and 0 < nv < n
+        for name in (INT, CLS):
+            assert torch.equal(a.data[name], b.data[name]), name
+        np.testing.assert_allclose(a.data[POS].numpy(), b.data[POS].numpy(),
+                                   rtol=0, atol=atol)
+        return nv
+
+    # C: exact-f32, keys from the head and keys made inside
+    head = chip_smoke.exact_f32_head(batch, affine)
+    for pre in (True, False):
+        nv = same(chip_smoke.path_exact_f32(batch, head, tiles,
+                                            precomputed=pre),
+                  chip_smoke.path_exact_f32(batch, head, tiles, fused=False,
+                                            precomputed=pre), 1e-4)
+    # the exact-local main path finds the same voxels, the same centroids
+    main = chip_smoke.pipeline_batch(batch, affine, tiles)
+    exact = chip_smoke.path_exact_f32(batch, head, tiles)
+    assert int(main.count) == nv
+    np.testing.assert_allclose(main.data[POS].numpy(),
+                               exact.data[POS].numpy(), rtol=0, atol=2e-4)
+    # B: quantized, words from the head and words made inside
+    qhead = chip_smoke.quantized_head(batch, affine)
+    quant = chip_smoke.path_quantized(batch, qhead, tiles)
+    assert same(quant, chip_smoke.path_quantized(batch, qhead, tiles,
+                                                 fused=False), 0.0) == nv
+    wbatch = chip_smoke.attribute_batch(batch, head[1])
+    same(chip_smoke.path_quantized_internal(wbatch, qhead[0], tiles),
+         chip_smoke.path_quantized_internal(wbatch, qhead[0], tiles,
+                                            fused=False), 0.0)
+    # quantization moves a centroid by at most a residual step and a half
+    dev = (quant.data[POS] - exact.data[POS]).abs().max()
+    assert 0 < float(dev) <= 1.5 * chip_smoke.LEAF / 1024 + 2e-4
+    # A: filter, generic 20-bit grid, bounds and min/max of the result
+    kept, voxels, box, (imin, imax) = chip_smoke.path_filter_grid(wbatch)
+    assert int(kept.count) == int((cls != 7).sum())
+    np.testing.assert_array_equal(kept.data[INT].numpy()[:int(kept.count)],
+                                  inten[cls != 7])
+    nva = int(voxels.count)
+    assert 0 < nva < int(kept.count)
+    vpos = voxels.data[POS].numpy()[:nva]
+    np.testing.assert_array_equal(box.min, vpos.min(axis=0))
+    np.testing.assert_array_equal(box.max, vpos.max(axis=0))
+    assert imin == voxels.data[INT].numpy()[:nva].min() <= imax
+    assert not (voxels.data[CLS][:nva] == 7).any()
