@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of pasture_tpu_torch: the transform + voxelize steps and
-the filter -> voxel grid path.
+"""GPU smoke run of pasture_tpu_torch: the transform + voxelize steps, the
+filter -> voxel grid path, normals and registration.
 
 Run ``python3 chip_smoke.py`` on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit.  It
@@ -28,10 +28,23 @@ the CUDA toolkit.  It
    call without ``precomputed`` on a batch of f32 world positions;
    ``path_exact_f32`` — ``fused_world_bounds`` ->
    ``fused_decode_transform_key`` -> ``voxel_downsample(precomputed=(keys,
-   None))`` with the f32 positions riding a five-stream tile sort.
+   None))`` with the f32 positions riding a five-stream tile sort;
+6. drives normals and registration, each gated before it is timed:
+   ``path_normals`` — ``compute_normals(method="morton")`` on a 2 097 152-
+   point surface from a host buffer (K6 twice), against the analytic
+   surface normal and against the same call on K6's plain version;
+   ``path_icp`` — Morton-correspondence ICP at 1 048 576 points, point-to-
+   point and point-to-plane (K6 for the target normals), against the known
+   pose, and the point-to-plane pose against the same run on K6's plain
+   version; ``path_registration`` — ``RegistrationPipeline`` over four
+   scans (the generic voxel path on K5, exact point-to-plane ICP) against
+   the known trajectory, K5 against its plain version on one scan's own
+   inputs, then the pose graph (dense and CG) bringing knocked keyframes
+   back to their odometry poses.
 
-``--profile`` adds a ``profile`` line per path: one step's GPU time by
-kernel name.
+The ``kernels`` phase also holds K6 against its plain version at the
+normals path's shape.  ``--profile`` adds a ``profile`` line per path: one
+step's GPU time by kernel name.
 
 Each phase prints one JSON line.  Nothing is caught: any failure raises and
 the process exits non-zero.  Without a CUDA device it raises at once; it
@@ -41,6 +54,7 @@ never carries on on the CPU.  The last line is
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -51,7 +65,9 @@ import torch
 
 from pasture_tpu_torch import algorithms
 from pasture_tpu_torch._device import resolve_device
+from pasture_tpu_torch.algorithms import normals as normals_mod
 from pasture_tpu_torch.buffers.device import PointBatch
+from pasture_tpu_torch.buffers.host import HostPointBuffer
 from pasture_tpu_torch.layout import attributes as att
 from pasture_tpu_torch.layout.schema import PointSchema
 from pasture_tpu_torch.math.morton import morton_encode_u64
@@ -63,6 +79,14 @@ from pasture_tpu_torch.ops.kernels import compact_kernel as ck
 from pasture_tpu_torch.ops.kernels import fused_transform as ft
 from pasture_tpu_torch.ops.kernels import tile_sort_kernel as ts
 from pasture_tpu_torch.ops.kernels import voxel_reduce_kernel as vr
+from pasture_tpu_torch.ops.kernels import window_fit_kernel as wf
+from pasture_tpu_torch.ops.compact import compact_columns
+from pasture_tpu_torch.pipeline import RegistrationPipeline
+from pasture_tpu_torch.registration import icp, optimize_pose_graph, so3_exp
+from pasture_tpu_torch.registration.pose_graph import edge_residuals
+
+# the module (the package's ``voxel_downsample`` is the function)
+voxel_mod = importlib.import_module("pasture_tpu_torch.ops.voxel")
 
 N = 1 << 22          # points of the headline step
 LEAF = 0.5
@@ -79,6 +103,26 @@ ROT = np.asarray([[np.cos(_THETA), -np.sin(_THETA), 0.0],
                   [0.0, 0.0, 1.0]], np.float32)
 TRANS = np.asarray([10.0, -5.0, 2.0], np.float64)
 SCALE = np.asarray([0.001, 0.001, 0.001], np.float32)
+
+# normals (benches/normals_bench.py): surface points, k, Morton window
+NORMALS_N = 1 << 21
+NORMALS_K = 12
+NORMALS_WINDOW = 64
+# ICP (benches/icp_bench.py): points, iterations, the true misalignment
+ICP_N = 1 << 20
+ICP_ITERS = 30
+ICP_THETA = np.deg2rad(1.0)
+ICP_SHIFT = np.asarray([0.21, -0.13, 0.08], np.float32)
+ICP_MAX_DIST = 4.0
+# registration pipeline: scans of one scene, their spacing along x, voxel
+REG_SCANS = 4
+REG_N = 1 << 16
+REG_STEP = 0.1
+REG_VOXEL = 0.25
+# the knock every keyframe but the first gets before the pose graph: a turn
+# about a random axis (rad) and a shift of random direction (m)
+REG_KNOCK_ROT = np.deg2rad(2.0)
+REG_KNOCK_T = 0.05
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and the float32 rate outside the tensor cores, which is also what the
@@ -255,6 +299,189 @@ def path_exact_f32(batch: PointBatch, head, tiles: int, fused: bool = True,
         attribute_batch(batch, world), LEAF, bounds=(bmin, None),
         semantics="floor", grid_bits=10, sort_tiles=tiles,
         precomputed=(keys, None) if precomputed else None, fused=fused)
+
+
+# ---- normals and registration ------------------------------------------------
+
+def normals_surface(n: int = NORMALS_N, seed: int = 3) -> np.ndarray:
+    """The surface of benches/normals_bench.py: ``xy ~ U(-100, 100)``,
+    ``z = 0.4 sin(0.7x) + 0.3 cos(0.5y)``, (n, 3) f32."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-100, 100, (n, 2)).astype(np.float32)
+    z = (0.4 * np.sin(xy[:, 0] * 0.7)
+         + 0.3 * np.cos(xy[:, 1] * 0.5)).astype(np.float32)
+    return np.stack([xy[:, 0], xy[:, 1], z], axis=1)
+
+
+def within_degrees(normals: np.ndarray, pos: np.ndarray, deg: float = 6.0
+                   ) -> float:
+    """Share of unoriented normals within ``deg`` of the analytic normal of
+    :func:`normals_surface` (the gate of benches/normals_bench.py)."""
+    an = np.stack([-0.4 * 0.7 * np.cos(pos[:, 0] * 0.7),
+                   0.3 * 0.5 * np.sin(pos[:, 1] * 0.5),
+                   np.ones(pos.shape[0])], axis=1)
+    an /= np.linalg.norm(an, axis=1, keepdims=True)
+    dot = np.abs(np.sum(normals.astype(np.float64) * an, axis=1))
+    return float((dot > np.cos(np.deg2rad(deg))).mean())
+
+
+def positions_buffer(pos: np.ndarray) -> HostPointBuffer:
+    schema = PointSchema.from_attributes([att.POSITION_3D])
+    return HostPointBuffer(schema, {POS: pos.astype(np.float64)})
+
+
+def path_normals(buf: HostPointBuffer, device=None):
+    """Morton-window normals of a host buffer (``device=None``: the GPU)."""
+    return algorithms.compute_normals(buf, NORMALS_K, method="morton",
+                                      window=NORMALS_WINDOW, device=device)
+
+
+def icp_scene(n: int = ICP_N, seed: int = 11) -> np.ndarray:
+    """The scene of benches/icp_bench.py: rolling terrain plus two wall
+    planes in a 200 m tile, (n, 3) f32."""
+    rng = np.random.default_rng(seed)
+    n_ground = n - (n // 8) * 2
+    xy = rng.uniform(0, 200, (n_ground, 2)).astype(np.float32)
+    z = (2.0 * np.sin(xy[:, 0] * 0.05) + 1.5 * np.cos(xy[:, 1] * 0.04)
+         + rng.normal(0, 0.02, n_ground)).astype(np.float32)
+    walls = []
+    for x0 in (60.0, 140.0):
+        yz = rng.uniform(0, 1, (n // 8, 2)).astype(np.float32)
+        walls.append(np.stack([
+            np.full(n // 8, x0, np.float32) + rng.normal(
+                0, 0.02, n // 8).astype(np.float32),
+            yz[:, 0] * 200, yz[:, 1] * 8], axis=1))
+    return np.concatenate([np.stack([xy[:, 0], xy[:, 1], z], axis=1)]
+                          + walls).astype(np.float32)
+
+
+def icp_pair(n: int = ICP_N):
+    """``(source, target)`` f32: the scene and its view under a 1° yaw
+    about the scene's mean and a shift, row for row."""
+    target = icp_scene(n)
+    c, s = np.cos(ICP_THETA), np.sin(ICP_THETA)
+    rot = np.asarray([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    mean = target.mean(0)
+    source = ((target - mean) @ rot.T + mean + ICP_SHIFT).astype(np.float32)
+    return source, target
+
+
+def path_icp(source: torch.Tensor, target: torch.Tensor,
+             point_to_plane: bool, iterations: int = ICP_ITERS):
+    """Morton-correspondence ICP of ``source`` onto ``target``."""
+    return icp(source, target, max_correspondence_distance=ICP_MAX_DIST,
+               iterations=iterations, correspondence="morton",
+               point_to_plane=point_to_plane)
+
+
+def icp_residual(result, source: np.ndarray, target: np.ndarray) -> float:
+    """Mean absolute residual of the rows after the estimated pose (rows
+    correspond one to one)."""
+    rot = result.rotation.cpu().numpy().astype(np.float64)
+    t = result.translation.cpu().numpy().astype(np.float64)
+    return float(np.abs(source @ rot.T + t - target).mean())
+
+
+def registration_scans(scans: int = REG_SCANS, n: int = REG_N,
+                       step: float = REG_STEP, seed: int = 13) -> list:
+    """``scans`` views of one scene — a 24 m terrain tile with two walls —
+    each shifted ``step`` m further along x, (n, 3) f64 each."""
+    rng = np.random.default_rng(seed)
+    n_wall = n // 8
+    n_ground = n - 2 * n_wall
+    xy = rng.uniform(0, 24, (n_ground, 2))
+    z = 0.5 * np.sin(0.4 * xy[:, 0]) + 0.4 * np.cos(0.3 * xy[:, 1])
+    parts = [np.stack([xy[:, 0], xy[:, 1], z], axis=1)]
+    for x0 in (6.0, 18.0):
+        yz = rng.uniform(0, 1, (n_wall, 2))
+        parts.append(np.stack([x0 + rng.normal(0, 0.01, n_wall),
+                               yz[:, 0] * 24, yz[:, 1] * 3], axis=1))
+    scene = np.concatenate(parts)
+    return [scene + np.asarray([step * i, 0.0, 0.0]) for i in range(scans)]
+
+
+def _unit(rng) -> np.ndarray:
+    v = rng.normal(size=3)
+    return v / np.linalg.norm(v)
+
+
+def knock_keyframes(pipe: RegistrationPipeline, seed: int = 17) -> None:
+    """Knock every keyframe but the first (the pose graph's anchor) off its
+    odometry pose by a turn of ``REG_KNOCK_ROT`` and a shift of
+    ``REG_KNOCK_T``, about and along seeded random directions."""
+    rng = np.random.default_rng(seed)
+    for kf in pipe.keyframes[1:]:
+        turn = so3_exp(torch.from_numpy(_unit(rng) * REG_KNOCK_ROT)).numpy()
+        kf.rotation = turn @ kf.rotation
+        kf.translation = kf.translation + _unit(rng) * REG_KNOCK_T
+
+
+def graph_cost(graph) -> float:
+    """Total squared edge residual of a pose graph (unit weights)."""
+    return float(torch.sum(edge_residuals(graph) ** 2))
+
+
+def path_registration(scans: list, device=None, icp_iterations: int = 20):
+    """``RegistrationPipeline`` over ``scans`` (default point-to-plane ICP
+    on exact correspondences); then the keyframes are knocked off their
+    odometry poses (:func:`knock_keyframes`) and ``optimize()`` brings them
+    back.  Returns ``(pipeline, odometry poses (rotations, translations),
+    knocked graph, its cost, the cost curve)``."""
+    pipe = RegistrationPipeline(voxel_size=REG_VOXEL, keyframe_distance=0.05,
+                                icp_iterations=icp_iterations, device=device)
+    for s in scans:
+        pipe.add_scan(s)
+    odometry = (np.stack([kf.rotation for kf in pipe.keyframes]),
+                pipe.trajectory())
+    knock_keyframes(pipe)
+    graph = pipe.graph()
+    return pipe, odometry, graph, graph_cost(graph), pipe.optimize()
+
+
+def pose_error(rotations: np.ndarray, translations: np.ndarray,
+               odometry: tuple) -> float:
+    """Largest deviation of poses from the odometry poses: rotation matrix
+    entries and translations (m), whichever is larger."""
+    return float(max(np.abs(rotations - odometry[0]).max(),
+                     np.abs(translations - odometry[1]).max()))
+
+
+def held_compaction(scan: np.ndarray, device=None) -> int:
+    """K5 held against its plain version on the inputs the pipeline's voxel
+    downsampling of ``scan`` hands it: the sorted voxel keys and the
+    first-of-voxel mask, captured from one ``_downsample`` call.  Raises
+    unless the kept counts and the compacted columns are equal; returns
+    the kept count."""
+    seen = []
+
+    def capture(cols, keep):
+        out = compact_columns(cols, keep)
+        seen.append((list(cols), keep, out))
+        return out
+    voxel_mod.compact_columns = capture
+    try:
+        RegistrationPipeline(voxel_size=REG_VOXEL,
+                             device=device)._downsample(scan)
+    finally:
+        voxel_mod.compact_columns = compact_columns
+    if len(seen) != 1:
+        raise AssertionError(f"the downsampling compacted {len(seen)} times")
+    cols, keep, (got, count) = seen[0]
+    want, wcount = ck.blockwise_compact_plain(cols, keep)
+    if int(count) != int(wcount):
+        raise AssertionError(f"registration K5: {int(count)} kept, plain "
+                             f"version {int(wcount)}")
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("registration K5: the compacted keys differ "
+                             "from its plain version's")
+    return int(count)
+
+
+def trajectory_error(traj: np.ndarray, step: float = REG_STEP) -> float:
+    """Largest deviation of the spacing of consecutive keyframes from
+    ``step``."""
+    return float(np.abs(np.linalg.norm(np.diff(traj, axis=0), axis=1)
+                        - step).max())
 
 
 # ---- timing ------------------------------------------------------------------
@@ -675,7 +902,51 @@ def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
                flush, reps=5),
         20.0 * n + 16.0 * nvf + 4.0 * tiles, 24.0 * n + 40.0 * nvf,
         path="path_exact_f32")
+    del got5, kpos, spos
+
+    # K6 at the normals path's shape: the surface in Morton order, 2 % of
+    # the candidates inf; every output bit-exact (both passes compute d2 by
+    # one expression, -fmad=false, the same additions in the same order)
+    sp, pp = window_fit_inputs(torch.from_numpy(normals_surface()).to(dev))
+    k, w = NORMALS_K, NORMALS_WINDOW
+    got = wf.window_fit_moments(sp, pp, k, w)
+    want = wf.window_fit_moments_plain(sp, pp, k, w)
+    torch.cuda.synchronize()
+    err = max((g - p).abs().max().item() for g, p in zip(got, want))
+    if not all(torch.equal(g, p) for g, p in zip(got, want)):
+        raise AssertionError(f"window_fit_moments differs from its plain "
+                             f"version by {err}")
+    nq = sp.shape[0]
+    row("window_fit_moments", _CSRC + "window_fit.cu",
+        _TPU + "window_fit_kernel.py:214", err,
+        gpu_ms(lambda: wf.window_fit_moments(sp, pp, k, w), flush),
+        gpu_ms(lambda: wf.window_fit_moments_plain(sp, pp, k, w), flush,
+               warmup=1, reps=3),
+        # 12 B query + 12 B candidate read, 44 B written per query; per
+        # query and shift 8 operations for d2 and 2k min/max in pass 1,
+        # ~30 in pass 2 (d2, selection, 11 accumulators), each counted as
+        # one operation at the float32 rate
+        68.0 * nq + 24.0 * w, nq * (2.0 * w + 1) * (38 + 2 * k),
+        path="path_normals")
     return rows
+
+
+def window_fit_inputs(pos: torch.Tensor, invalid: float = 0.02,
+                      seed: int = 5):
+    """K6's inputs at the normals path's shape: ``pos`` in the order of its
+    first Morton curve, and the candidate array with ``invalid`` of the
+    rows inf."""
+    valid = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
+    lo = pos.amin(dim=0)
+    sp = pos[normals_mod.morton_order(pos, valid, lo,
+                                      (pos.amax(dim=0) - lo).max())]
+    gen = torch.Generator(device=pos.device).manual_seed(seed)
+    cand = torch.rand(pos.shape[0], device=pos.device,
+                      generator=gen) >= invalid
+    pad = torch.full((NORMALS_WINDOW, 3), float("inf"), device=pos.device)
+    return sp, torch.cat([pad, torch.where(cand[:, None], sp,
+                                           torch.full_like(sp, float("inf"))),
+                          pad])
 
 
 def tile_groups(keys: np.ndarray, tile_len: int) -> np.ndarray:
@@ -990,10 +1261,11 @@ def phase_path_exact_f32(batch: PointBatch, affine, tiles: int, rows: list,
         "mpoints_per_s": n / ms / 1e3, "card": smi}), flush=True)
 
 
-def phase_profile(path: str, step, steps: int = 5) -> None:
-    """Where one step of ``path`` spends its GPU time: device time by kernel
-    name over ``steps`` steady calls of ``step(i)`` (``torch.profiler``),
-    the hand kernels marked."""
+def gpu_profile(step, steps: int = 5) -> dict:
+    """Where ``steps`` steady calls of ``step(i)`` spend GPU time
+    (``torch.profiler``): per step, the traced wall time, the device busy
+    time (sum of kernel times), the hand kernels' share, the device
+    launches, and the top kernels by name."""
     from torch.profiler import ProfilerActivity, profile
     step(0)
     torch.cuda.synchronize()
@@ -1005,26 +1277,202 @@ def phase_profile(path: str, step, steps: int = 5) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     ours = ("world_bounds", "voxel_head", "decode_transform_key",
-            "tile_sort", "voxel_reduce", "compact_count", "compact_write")
+            "tile_sort", "voxel_reduce", "compact_count", "compact_write",
+            "window_fit")
     by_name = {}
     for e in prof.events():
         if e.device_type.name == "CUDA":
             by_name.setdefault(e.name, [0.0, 0])
             by_name[e.name][0] += e.device_time / 1e3 / steps
             by_name[e.name][1] += 1
-    busy = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]
-    print(json.dumps({
-        "phase": "profile", "path": path, "steps": steps,
-        "traced_wall_ms_per_step": wall_ms,
-        "device_busy_ms_per_step": busy,
+    return {
+        "steps": steps, "traced_wall_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": sum(v[0] for v in by_name.values()),
         "hand_kernels_ms_per_step": sum(
             v[0] for k, v in by_name.items() if any(o in k for o in ours)),
         "device_launches_per_step": sum(
             v[1] for v in by_name.values()) / steps,
         "top": [{"name": k[:60], "ms_per_step": v[0],
-                 "calls_per_step": v[1] / steps} for k, v in top]}),
+                 "calls_per_step": v[1] / steps} for k, v in top]}
+
+
+def phase_profile(path: str, step, steps: int = 5) -> None:
+    """One ``profile`` line: :func:`gpu_profile` of ``path``."""
+    print(json.dumps({"phase": "profile", "path": path,
+                      **gpu_profile(step, steps)}), flush=True)
+
+
+def phase_path_normals(pos: np.ndarray, rows: list, smi: str) -> None:
+    """Morton-window normals of the 2 097 152-point surface from a host
+    buffer: gated against the analytic normal and against the same call on
+    K6's plain version, counted, timed."""
+    n = pos.shape[0]
+    buf = positions_buffer(pos)
+    kernels.reset_launch_counts()
+    nrm, curv = path_normals(buf)
+    counts = kernels.launch_counts()      # the result is on the host: synced
+    read_launches(rows, "path_normals", counts)
+    if counts["window_fit_moments"] != 2:
+        raise AssertionError(f"path_normals: {counts['window_fit_moments']} "
+                             f"K6 launches, expected 2 (one per curve)")
+    if nrm.shape != (n, 3) or not (np.isfinite(nrm).all()
+                                   and np.isfinite(curv).all()):
+        raise AssertionError("path_normals: bad shape or non-finite values")
+    frac6 = within_degrees(nrm, pos)
+    if not frac6 >= 0.99:
+        raise AssertionError(f"path_normals: {frac6} of normals within 6° "
+                             f"of the analytic surface")
+    # the whole path once more with K6's plain version in its place
+    before = kernels.launch_counts()["window_fit_moments"]
+    normals_mod._PLAIN_WINDOW_FIT = True
+    try:
+        pnrm, pcurv = path_normals(buf)
+    finally:
+        normals_mod._PLAIN_WINDOW_FIT = False
+    if kernels.launch_counts()["window_fit_moments"] != before:
+        raise AssertionError("path_normals: the plain run launched K6")
+    if not (np.array_equal(nrm, pnrm) and np.array_equal(curv, pcurv)):
+        raise AssertionError(
+            f"path_normals: normals on K6 differ from those on its plain "
+            f"version by {np.abs(nrm - pnrm).max()}")
+    ms, lo, hi = step_ms(lambda i: path_normals(buf), warmup=1, reps=5)
+    prof = gpu_profile(lambda i: path_normals(buf), steps=2)
+    print(json.dumps({
+        "phase": "path_normals", "points": n, "k": NORMALS_K,
+        "window": NORMALS_WINDOW, "launches": counts,
+        "frac_within_6deg": frac6, "equal_to_plain_k6": True,
+        "step_ms": ms, "step_ms_min": lo, "step_ms_max": hi, "repeats": 5,
+        "mpoints_per_s": n / ms / 1e3,
+        "device_busy_ms": prof["device_busy_ms_per_step"],
+        "k6_ms": sum(t["ms_per_step"] for t in prof["top"]
+                     if "window_fit" in t["name"]),
+        "device_launches": prof["device_launches_per_step"],
+        "card": smi}), flush=True)
+
+
+def phase_path_icp(dev: torch.device, smi: str) -> tuple:
+    """Morton-correspondence ICP at 1 048 576 points, point-to-point and
+    point-to-plane: pose recovered, K6 launched only for the target
+    normals, then three runs timed (host clock to a synchronise).  Returns
+    the device tensors (source, target)."""
+    source, target = icp_pair()
+    src = torch.from_numpy(source).to(dev)
+    tgt = torch.from_numpy(target).to(dev)
+    out = {"phase": "path_icp", "points": ICP_N, "iterations": ICP_ITERS,
+           "card": smi}
+    for p2pl in (False, True):
+        name = "point_to_plane" if p2pl else "point_to_point"
+        kernels.reset_launch_counts()
+        res = path_icp(src, tgt, p2pl)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        k6 = counts["window_fit_moments"]
+        if k6 != (2 if p2pl else 0):
+            raise AssertionError(f"path_icp ({name}): {k6} K6 launches")
+        resid = icp_residual(res, source, target)
+        if not resid < 0.02:
+            raise AssertionError(f"path_icp ({name}): mean residual {resid} "
+                                 f"m after the estimated pose")
+        if p2pl:
+            # K6 at this path's shape (1 048 576 target rows, k = 10,
+            # w = 64): the same run with its plain version in its place
+            # gives the same pose bit for bit
+            normals_mod._PLAIN_WINDOW_FIT = True
+            try:
+                plain = path_icp(src, tgt, True)
+            finally:
+                normals_mod._PLAIN_WINDOW_FIT = False
+            if kernels.launch_counts()["window_fit_moments"] != k6:
+                raise AssertionError("path_icp: the plain run launched K6")
+            if not all(torch.equal(getattr(res, f), getattr(plain, f))
+                       for f in ("rotation", "translation", "rmse",
+                                 "num_inliers")):
+                raise AssertionError(
+                    "path_icp: the pose on K6 differs from the pose on its "
+                    "plain version")
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = path_icp(src, tgt, p2pl)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        sec = float(np.median(runs))
+        out[name] = {"mean_abs_residual_m": resid, "launches": counts,
+                     "equal_to_plain_k6": True if p2pl else None,
+                     "num_inliers": int(res.num_inliers.item()),
+                     "seconds": sec, "seconds_min": min(runs),
+                     "seconds_max": max(runs),
+                     "mcorrespondences_per_s": ICP_N * ICP_ITERS / sec / 1e6}
+    print(json.dumps(out), flush=True)
+    return src, tgt
+
+
+def phase_path_registration(smi: str) -> None:
+    """``RegistrationPipeline`` over four scans 0.1 m apart: keyframe
+    spacing within 0.02 m of the truth, K5 launched by the voxel
+    downsampling and equal to its plain version on one scan's own inputs;
+    then the keyframes knocked off their odometry poses and brought back by
+    the pose graph, dense (``optimize()``) and CG: the cost falls by
+    1e-12 or more without rising, the poses return within 1e-6.  The whole
+    run timed."""
+    scans = registration_scans()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pipe, odometry, knocked, cost0, costs = path_registration(scans)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    expect_launched("path_registration", counts, "blockwise_compact")
+    kept = held_compaction(scans[0])
+    if len(pipe.keyframes) != REG_SCANS:
+        raise AssertionError(f"path_registration: {len(pipe.keyframes)} "
+                             f"keyframes")
+    err = trajectory_error(odometry[1])
+    if not err < 0.02:
+        raise AssertionError(f"path_registration: keyframe spacing off by "
+                             f"{err} m")
+    dense_err = pose_error(np.stack([kf.rotation for kf in pipe.keyframes]),
+                           pipe.trajectory(), odometry)
+    cg_graph, cg_costs = optimize_pose_graph(knocked, solver="cg")
+    cg_costs = cg_costs.cpu().numpy()
+    cg_err = pose_error(cg_graph.rotations.cpu().numpy(),
+                        cg_graph.translations.cpu().numpy(), odometry)
+    for solver, curve, perr in (("dense", costs, dense_err),
+                                ("cg", cg_costs, cg_err)):
+        # non-increasing up to the rounding of an f64 sum near zero
+        if not (np.all(np.diff(np.concatenate([[cost0], curve])) <= 1e-12)
+                and curve[-1] <= 1e-12 * cost0):
+            raise AssertionError(f"path_registration ({solver}): cost "
+                                 f"{cost0} -> {curve}")
+        if not perr < 1e-6:
+            raise AssertionError(f"path_registration ({solver}): poses "
+                                 f"{perr} from the odometry")
+    print(json.dumps({
+        "phase": "path_registration", "scans": REG_SCANS,
+        "points_per_scan": REG_N, "voxel_size": REG_VOXEL,
+        "points_per_keyframe": [len(k.points) for k in pipe.keyframes],
+        "max_spacing_error_m": err, "k5_equal_to_plain": True,
+        "k5_kept_rows_scan0": kept, "knocked_cost": cost0,
+        "costs": [float(c) for c in costs],
+        "cg_costs": [float(c) for c in cg_costs],
+        "max_pose_error": {"dense": dense_err, "cg": cg_err},
+        "launches": counts, "seconds": sec,
+        "cg_ms_per_iteration": cg_iteration_ms(pipe.graph()), "card": smi}),
         flush=True)
+
+
+def cg_iteration_ms(graph) -> float:
+    """GPU time of one PCG iteration of the pose graph, its host read of
+    r·z included: one Gauss-Newton step with 64 CG iterations forced (a
+    zero tolerance never exits early) minus one with none."""
+    def run(cg_iterations):
+        return lambda i: optimize_pose_graph(graph, iterations=1,
+                                             solver="cg",
+                                             cg_iterations=cg_iterations,
+                                             cg_tol=0.0)
+    with_cg = step_ms(run(64), warmup=1, reps=3)[0]
+    return (with_cg - step_ms(run(0), warmup=1, reps=3)[0]) / 64
 
 
 def main() -> int:
@@ -1046,6 +1494,10 @@ def main() -> int:
     phase_path_filter_grid(wbatch, rows, smi)
     phase_path_quantized(batch, wbatch, affine, tiles, rows, smi)
     phase_path_exact_f32(batch, affine, tiles, rows, smi)
+    surface = normals_surface()
+    phase_path_normals(surface, rows, smi)
+    src, tgt = phase_path_icp(dev, smi)
+    phase_path_registration(smi)
     if "--profile" in sys.argv[1:]:
         def shift(i):
             return (i % 7) * 1e-6
@@ -1057,6 +1509,11 @@ def main() -> int:
             batch, quantized_head(batch, affine, shift(i)), tiles))
         phase_profile("path_exact_f32", lambda i: path_exact_f32(
             batch, exact_f32_head(batch, affine, shift(i)), tiles))
+        buf = positions_buffer(surface)
+        phase_profile("path_normals", lambda i: path_normals(buf), steps=3)
+        # three iterations of point-to-plane ICP, target normals included
+        phase_profile("path_icp", lambda i: path_icp(src, tgt, True, 3),
+                      steps=1)
     print(json.dumps({"kernels": rows}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ The port imports nothing of the JAX package, so a batch crosses over as
 plain numpy: the caller turns each JAX array into ``numpy`` (the tests do
 ``np.asarray(jax_array)``) and these functions build the port's own
 :class:`PointBatch` — with the port's own :class:`PointSchema`, found by
-attribute name — and go back.
+attribute name — or its own ``PoseGraph``, and go back.  Point clouds cross
+as ``(N, 3)`` numpy.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from .layout.dtypes import DevicePolicy, carrier_np_dtype
 from .layout.schema import PointSchema
 
 __all__ = ["batch_from_reference_arrays", "batch_to_reference_arrays",
-           "affine_from_reference", "head_args_from_reference"]
+           "affine_from_reference", "head_args_from_reference",
+           "pose_graph_from_reference", "pose_graph_to_reference"]
 
 _BUILTIN = {a.name: a for a in att.BUILTIN_ATTRIBUTES}
 
@@ -98,3 +100,39 @@ def head_args_from_reference(scale, rot, trans, bounds_min, leaf_size,
     return (_f32(scale, dev).reshape(3), _f32(rot, dev).reshape(3, 3),
             _f32(trans, dev).reshape(3), _f32(bounds_min, dev).reshape(3),
             float(leaf_size))
+
+
+def pose_graph_from_reference(rotations, translations, edges, rel_rotations,
+                              rel_translations, weights=None,
+                              device: Optional[Union[str, torch.device]]
+                              = None):
+    """The port's :class:`~pasture_tpu_torch.registration.PoseGraph` from the
+    numpy arrays of a JAX ``PoseGraph`` (rotations (N, 3, 3), translations
+    (N, 3), edges (E, 2), relative rotations (E, 3, 3) and translations
+    (E, 3), optional weights (E,)).  Float arrays keep their dtype, edges
+    become int64.  ``device=None`` means the GPU."""
+    from .registration import PoseGraph
+
+    dev = resolve_device(device)
+
+    def f(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return PoseGraph(f(rotations), f(translations),
+                     f(np.asarray(edges, np.int64)), f(rel_rotations),
+                     f(rel_translations),
+                     None if weights is None else f(weights))
+
+
+def pose_graph_to_reference(graph) -> Tuple[np.ndarray, ...]:
+    """``(rotations, translations, edges, rel_rotations, rel_translations,
+    weights)`` of a port ``PoseGraph`` as numpy — what ``jnp.asarray`` needs
+    to rebuild the JAX ``PoseGraph``; ``weights`` is ``None`` when the graph
+    has none, edges are int32 as the JAX package keeps them."""
+    def f(t):
+        return t.detach().cpu().numpy()
+
+    return (f(graph.rotations), f(graph.translations),
+            f(graph.edges).astype(np.int32), f(graph.rel_rotations),
+            f(graph.rel_translations),
+            None if graph.weights is None else f(graph.weights))

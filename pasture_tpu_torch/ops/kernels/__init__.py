@@ -9,13 +9,15 @@ from .fused_transform import (  # noqa: F401
     fused_voxel_head_exact_local, fused_world_bounds)
 from .tile_sort_kernel import supports_tile_sort, tile_sort  # noqa: F401
 from .voxel_reduce_kernel import fused_sorted_voxel_reduce  # noqa: F401
+from .window_fit_kernel import (  # noqa: F401
+    supports_window_fit, window_fit_moments)
 
 
 def _kernel_modules():
     from . import (compact_kernel, fused_transform, tile_sort_kernel,
-                   voxel_reduce_kernel)
+                   voxel_reduce_kernel, window_fit_kernel)
     return (compact_kernel, fused_transform, tile_sort_kernel,
-            voxel_reduce_kernel)
+            voxel_reduce_kernel, window_fit_kernel)
 
 
 def launch_counts() -> dict:

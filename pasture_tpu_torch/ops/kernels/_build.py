@@ -72,6 +72,10 @@ SOURCES: Dict[str, Dict[str, Sequence]] = {
         "voxel_reduce_write_launch": (I, P, P, P, P, P, I, I, P, P, P, I, I,
                                       I, P, P, P, P, P),
     },
+    "window_fit": {
+        # sp, pp, n, k, w, cnt, tight, s, m6, stream
+        "window_fit_launch": (P, P, I, I, I, P, P, P, P, P),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
