@@ -7,6 +7,12 @@ the CUDA toolkit.  It
 
 1. names the device (``device``),
 2. builds the package's CUDA kernels from ``ops/kernels/csrc`` (``build``),
+   then holds the tile sort against its plain version over every tile
+   length, stream count and key count it has a code path for, on
+   adversarial tiles (``tile_sort_sweep``), and K6 against its plain
+   version bit for bit over k and window sizes on inputs with ties,
+   duplicates, empty windows and underflowing products
+   (``window_fit_sweep``),
 3. holds each kernel against its plain PyTorch version on the GPU at the
    shapes of the paths below — 4 194 304 points in 8192 tiles of 512 rows —
    and times kernel, plain version and, where one exists, the single
@@ -43,8 +49,8 @@ the CUDA toolkit.  It
    back to their odometry poses.
 
 The ``kernels`` phase also holds K6 against its plain version at the
-normals path's shape.  ``--profile`` adds a ``profile`` line per path: one
-step's GPU time by kernel name.
+normals path's shape and at the point-to-plane ICP's.  ``--profile`` adds
+a ``profile`` line per path: one step's GPU time by kernel name.
 
 Each phase prints one JSON line.  Nothing is caught: any failure raises and
 the process exits non-zero.  Without a CUDA device it raises at once; it
@@ -114,6 +120,7 @@ ICP_ITERS = 30
 ICP_THETA = np.deg2rad(1.0)
 ICP_SHIFT = np.asarray([0.21, -0.13, 0.08], np.float32)
 ICP_MAX_DIST = 4.0
+ICP_NORMALS_K = 10   # the target normals of point-to-plane ICP (icp.py)
 # registration pipeline: scans of one scene, their spacing along x, voxel
 REG_SCANS = 4
 REG_N = 1 << 16
@@ -613,17 +620,19 @@ def step_ms(fn, warmup: int = 2, reps: int = 7):
     return float(np.median(times)), float(min(times)), float(max(times))
 
 
-def check_tile_sort(streams: list, tile_len: int):
-    """``tile_sort`` by (first, second stream) against its plain version:
-    key streams bit-exact; per tile the multiset of rows equal (the sort is
-    unstable: rows with equal keys may come in any order).  Returns the
-    kernel's streams and the largest key difference."""
-    what = f"tile_sort ({len(streams)} streams)"
-    got = kernels.tile_sort(streams, tile_len, num_keys=2)
-    want = ts.tile_sort_plain(streams, tile_len, num_keys=2)
+def check_tile_sort(streams: list, tile_len: int, num_keys: int = 2):
+    """``tile_sort`` by its first ``num_keys`` streams against its plain
+    version: key streams bit-exact; per tile the multiset of rows equal (the
+    sort is unstable: rows with equal keys may come in any order).  Returns
+    the kernel's streams and the largest key difference."""
+    what = f"tile_sort ({len(streams)} streams, {num_keys} keys, " \
+           f"{tile_len}-row tiles)"
+    got = kernels.tile_sort(streams, tile_len, num_keys=num_keys)
+    want = ts.tile_sort_plain(streams, tile_len, num_keys=num_keys)
     torch.cuda.synchronize()
     gotc = [u32_carrier(s) for s in got]
-    dkey = max((gotc[i] - want[i]).abs().max().item() for i in range(2))
+    dkey = max((gotc[i] - want[i]).abs().max().item()
+               for i in range(num_keys))
     if dkey:
         raise AssertionError(f"{what}: key streams differ by {dkey}")
     full_g = ts.lex_order(gotc, tile_len)
@@ -633,6 +642,111 @@ def check_tile_sort(streams: list, tile_len: int):
             raise AssertionError(f"{what}: a tile's rows are not a "
                                  f"permutation of its input rows")
     return got, dkey
+
+
+SWEEP_TILE_LENS = (2, 32, 64, 256, 512, 1024, 4096)
+SWEEP_TILES = 320            # 64 tiles of each of the five kinds below
+
+
+def sweep_streams(tile_len: int, tiles: int = SWEEP_TILES, seed: int = 19
+                  ) -> list:
+    """Five u32 streams (bits form, int32) of ``tiles`` tiles of adversarial
+    rows, tile ``t`` of kind ``t % 5``: keys from a small range (repeats);
+    all keys equal; all keys 0xFFFFFFFF; rows in descending order; keys
+    and words with the top bit set.  Streams 2-4 are distinct payloads, so
+    a lost or doubled row shows."""
+    rng = np.random.default_rng(seed + tile_len)
+    n = tiles * tile_len
+    kind = np.repeat(np.arange(tiles) % 5, tile_len)
+    pos = np.tile(np.arange(tile_len, dtype=np.uint64), tiles)
+    key = rng.integers(0, 16, n).astype(np.uint64)
+    word = rng.integers(0, 1 << 32, n, dtype=np.uint64) & 0xFF0000FF
+    key[kind == 1] = 7
+    key[kind == 2] = 0xFFFFFFFF
+    desc = (kind == 3)
+    key[desc] = (tile_len - pos[desc]) // 3 + (1 << 31)
+    word[desc] = 0xFFFFFFFF - pos[desc]
+    top = kind == 4
+    key[top] |= 0x80000000
+    word[top] |= 0x80000000
+    out = [key, word] + [rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                         for _ in range(3)]
+    return [torch.from_numpy(s.astype(np.uint32).view(np.int32))
+            for s in out]
+
+
+def phase_tile_sort_sweep(dev: torch.device) -> None:
+    """K4 against its plain version over every tile length the kernel
+    family has a code path for, every stream count and key count, on
+    :func:`sweep_streams`: key streams bit-exact, every tile a permutation
+    of its rows."""
+    t0 = time.perf_counter()
+    checks = 0
+    for tile_len in SWEEP_TILE_LENS:
+        streams = [s.to(dev) for s in sweep_streams(tile_len)]
+        for n_streams in range(1, 6):
+            for num_keys in (1, 2):
+                if num_keys <= n_streams:
+                    check_tile_sort(streams[:n_streams], tile_len, num_keys)
+                    checks += 1
+    print(json.dumps({"phase": "tile_sort_sweep",
+                      "tile_lens": list(SWEEP_TILE_LENS),
+                      "tiles": SWEEP_TILES, "checks": checks,
+                      "all_equal": True,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
+SWEEP_KS = (1, 8, 9, 10, 12, 16, 17, 32)
+SWEEP_WS = (1, 16, 64, 500, 1920)
+
+
+def sweep_window_inputs(w: int, seed: int = 23):
+    """K6's inputs for the sweep at window ``w``: ``(sp, pp)`` f32, with
+    ``n`` not a multiple of the kernel's queries per block.  Three regions
+    of queries: points of a coarse integer lattice (many ties at the k-th
+    distance) with a tenth of the rows exact duplicates of their
+    predecessor; points within 3e-23 of the origin (offset products
+    underflow to -0.0 and +0.0); and a run of ``2w + 9`` invalid
+    candidates, so that some windows hold no finite candidate.  2 % of the
+    other candidates are invalid too."""
+    rng = np.random.default_rng(seed + w)
+    lat = rng.integers(0, 4, (1000, 3)).astype(np.float32)
+    dup = rng.random(1000) < 0.1
+    dup[0] = False
+    lat[dup] = lat[np.flatnonzero(dup) - 1]
+    tiny = rng.uniform(-3e-23, 3e-23, (1000, 3)).astype(np.float32)
+    run = rng.uniform(0, 4, (2 * w + 9, 3)).astype(np.float32)
+    tail = rng.integers(0, 4, (38, 3)).astype(np.float32)    # n odd
+    sp = np.concatenate([lat, tiny, run, tail])
+    cand = np.where(rng.random((sp.shape[0], 1)) < 0.02, np.inf, sp)
+    cand[2000:2000 + run.shape[0]] = np.inf
+    pad = np.full((w, 3), np.inf, np.float32)
+    pp = np.concatenate([pad, cand, pad]).astype(np.float32)
+    return torch.from_numpy(sp), torch.from_numpy(pp)
+
+
+def phase_window_fit_sweep(dev: torch.device) -> None:
+    """K6 against its plain version, every output bit for bit, over every
+    k in ``SWEEP_KS`` and window in ``SWEEP_WS`` on
+    :func:`sweep_window_inputs`."""
+    t0 = time.perf_counter()
+    checks = 0
+    for w in SWEEP_WS:
+        sp, pp = (a.to(dev) for a in sweep_window_inputs(w))
+        for k in SWEEP_KS:
+            got = wf.window_fit_moments(sp, pp, k, w)
+            want = wf.window_fit_moments_plain(sp, pp, k, w)
+            torch.cuda.synchronize()
+            for name, g, p in zip(("cnt", "tight", "s", "m6"), got, want):
+                if not torch.equal(g.view(torch.int32), p.view(torch.int32)):
+                    raise AssertionError(
+                        f"window_fit_moments (k={k}, w={w}): {name} differs "
+                        f"from the plain version's bits")
+            checks += 1
+    print(json.dumps({"phase": "window_fit_sweep", "ks": list(SWEEP_KS),
+                      "windows": list(SWEEP_WS), "checks": checks,
+                      "all_equal_bitwise": True,
+                      "seconds": time.perf_counter() - t0}), flush=True)
 
 
 def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
@@ -904,38 +1018,48 @@ def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
         path="path_exact_f32")
     del got5, kpos, spos
 
-    # K6 at the normals path's shape: the surface in Morton order, 2 % of
-    # the candidates inf; every output bit-exact (both passes compute d2 by
+    # K6 at the normals path's shape (the surface in Morton order, 2 % of
+    # the candidates inf) and at the point-to-plane ICP's (the target scene,
+    # k = 10, w = 64): every output bit-exact (both passes compute d2 by
     # one expression, -fmad=false, the same additions in the same order)
-    sp, pp = window_fit_inputs(torch.from_numpy(normals_surface()).to(dev))
-    k, w = NORMALS_K, NORMALS_WINDOW
-    got = wf.window_fit_moments(sp, pp, k, w)
-    want = wf.window_fit_moments_plain(sp, pp, k, w)
-    torch.cuda.synchronize()
-    err = max((g - p).abs().max().item() for g, p in zip(got, want))
-    if not all(torch.equal(g, p) for g, p in zip(got, want)):
-        raise AssertionError(f"window_fit_moments differs from its plain "
-                             f"version by {err}")
-    nq = sp.shape[0]
-    row("window_fit_moments", _CSRC + "window_fit.cu",
-        _TPU + "window_fit_kernel.py:214", err,
-        gpu_ms(lambda: wf.window_fit_moments(sp, pp, k, w), flush),
-        gpu_ms(lambda: wf.window_fit_moments_plain(sp, pp, k, w), flush,
-               warmup=1, reps=3),
-        # 12 B query + 12 B candidate read, 44 B written per query; per
-        # query and shift 8 operations for d2 and 2k min/max in pass 1,
-        # ~30 in pass 2 (d2, selection, 11 accumulators), each counted as
-        # one operation at the float32 rate
-        68.0 * nq + 24.0 * w, nq * (2.0 * w + 1) * (38 + 2 * k),
-        path="path_normals")
+    for name, pos, k, invalid, path in (
+            ("window_fit_moments", normals_surface(), NORMALS_K, 0.02,
+             "path_normals"),
+            ("window_fit_moments_icp", icp_scene(), ICP_NORMALS_K, 0.0,
+             "path_icp")):
+        w = NORMALS_WINDOW
+        sp, pp = window_fit_inputs(torch.from_numpy(pos).to(dev), invalid)
+        got = wf.window_fit_moments(sp, pp, k, w)
+        want = wf.window_fit_moments_plain(sp, pp, k, w)
+        torch.cuda.synchronize()
+        err = max((g - p).abs().max().item() for g, p in zip(got, want))
+        if not all(torch.equal(g.view(torch.int32), p.view(torch.int32))
+                   for g, p in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version by "
+                                 f"{err}")
+        nq = sp.shape[0]
+        selected = float(got[0].sum().item())
+        row(name, _CSRC + "window_fit.cu", _TPU + "window_fit_kernel.py:214",
+            err, gpu_ms(lambda: wf.window_fit_moments(sp, pp, k, w), flush),
+            gpu_ms(lambda: wf.window_fit_moments_plain(sp, pp, k, w), flush,
+                   warmup=1, reps=3),
+            # 12 B query + 12 B candidate read, 44 B written per query.
+            # The work these inputs need, each operation counted once at
+            # the float32 rate: per query and shift d2 (8) and one compare
+            # in each pass; 2k * k to fill the k sorted registers; ~20 per
+            # selected candidate (this run's count, the kernel's own cnt)
+            68.0 * nq + 24.0 * w,
+            nq * ((2.0 * w + 1) * 10 + 2.0 * k * k) + 20.0 * selected,
+            path=path, counter="window_fit_moments")
+        del sp, pp, got, want
     return rows
 
 
 def window_fit_inputs(pos: torch.Tensor, invalid: float = 0.02,
                       seed: int = 5):
-    """K6's inputs at the normals path's shape: ``pos`` in the order of its
-    first Morton curve, and the candidate array with ``invalid`` of the
-    rows inf."""
+    """K6's inputs as a Morton curve hands them over: ``pos`` in the order
+    of its first Morton curve, and the candidate array padded by the
+    window's inf rows a side, with ``invalid`` of the rows inf."""
     valid = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
     lo = pos.amin(dim=0)
     sp = pos[normals_mod.morton_order(pos, valid, lo,
@@ -1351,11 +1475,12 @@ def phase_path_normals(pos: np.ndarray, rows: list, smi: str) -> None:
         "card": smi}), flush=True)
 
 
-def phase_path_icp(dev: torch.device, smi: str) -> tuple:
+def phase_path_icp(dev: torch.device, rows: list, smi: str) -> tuple:
     """Morton-correspondence ICP at 1 048 576 points, point-to-point and
     point-to-plane: pose recovered, K6 launched only for the target
-    normals, then three runs timed (host clock to a synchronise).  Returns
-    the device tensors (source, target)."""
+    normals (its row at this shape reads the point-to-plane run's
+    launches), then three runs timed (host clock to a synchronise).
+    Returns the device tensors (source, target)."""
     source, target = icp_pair()
     src = torch.from_numpy(source).to(dev)
     tgt = torch.from_numpy(target).to(dev)
@@ -1370,6 +1495,8 @@ def phase_path_icp(dev: torch.device, smi: str) -> tuple:
         k6 = counts["window_fit_moments"]
         if k6 != (2 if p2pl else 0):
             raise AssertionError(f"path_icp ({name}): {k6} K6 launches")
+        if p2pl:
+            read_launches(rows, "path_icp", counts)
         resid = icp_residual(res, source, target)
         if not resid < 0.02:
             raise AssertionError(f"path_icp ({name}): mean residual {resid} "
@@ -1476,9 +1603,12 @@ def cg_iteration_ms(graph) -> float:
 
 
 def main() -> int:
+    t0 = time.perf_counter()
     dev = resolve_device(None)          # raises without a CUDA device
     info = phase_device()
     phase_build()
+    phase_tile_sort_sweep(dev)
+    phase_window_fit_sweep(dev)
     tiles = ZTILES * XTILES
     local_np, inten_np, cls_np = make_columns(N)
     batch = make_batch(local_np, inten_np, cls_np, device=dev)
@@ -1496,7 +1626,7 @@ def main() -> int:
     phase_path_exact_f32(batch, affine, tiles, rows, smi)
     surface = normals_surface()
     phase_path_normals(surface, rows, smi)
-    src, tgt = phase_path_icp(dev, smi)
+    src, tgt = phase_path_icp(dev, rows, smi)
     phase_path_registration(smi)
     if "--profile" in sys.argv[1:]:
         def shift(i):
@@ -1514,6 +1644,8 @@ def main() -> int:
         # three iterations of point-to-plane ICP, target normals included
         phase_profile("path_icp", lambda i: path_icp(src, tgt, True, 3),
                       steps=1)
+    print(json.dumps({"phase": "total",
+                      "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

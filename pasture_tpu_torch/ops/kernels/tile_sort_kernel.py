@@ -8,12 +8,19 @@ Replaces: pasture_tpu/ops/kernels/tile_sort_kernel.py tile_sort_pallas
 (_make_kernel).  Bound on the H100: bytes at the headline shape — 12 B read
 + 12 B written per row — while the bitonic network costs
 log2(L)*(log2(L)+1)/2 compare-exchange substages per row pair (45 for
-L = 512), all of them in shared memory.  Design (``csrc/tile_sort.cu``): one
-block per tile, the tile's streams resident in shared memory for the whole
-network, one thread per compare-exchange pair, the key compared as
-UNSIGNED words (the invalid key 0xFFFFFFFF and a packed word whose top bits
-hold the mode value are negative as int32 and must still sort last), one
-device-memory read and one write per stream.
+L = 512).  Design (``csrc/tile_sort.cu``, one kernel family for the whole
+contract): the rows live in registers, sixteen consecutive rows a thread
+(L rows where L < 16), loaded and stored with 16-byte vector accesses, and
+as many tiles a block as give it at least 128 threads.  A substage whose
+partner is in the same thread runs on registers (30 of 45 at L = 512); one
+in another lane of the warp exchanges rows with ``__shfl_xor_sync`` (15);
+only partners 512 rows apart or more (tiles of 1024 rows and up) go
+through shared memory.
+The key is compared as one UNSIGNED integer, ``key << 32 | word`` for two
+key streams (the invalid key 0xFFFFFFFF and a packed word whose top bits
+hold the mode value are negative as int32 and must still sort last);
+payload words follow their key through selects.  One device-memory read
+and one write per stream.
 
 Output equals a stable sort on the same operands up to the order WITHIN
 equal-key runs (the sort is unstable; the voxel pipeline's reductions are
@@ -35,8 +42,9 @@ __all__ = ["tile_sort", "tile_sort_plain", "supports_tile_sort", "LAUNCHES",
 #: launches of the kernel (the wrapper adds one where it launches it)
 LAUNCHES = {"tile_sort": 0}
 
-# 5 streams x 4096 rows x 4 B = 80 KiB of shared memory: the launch opts in
-# to the large dynamic carve-out (up to 227 KiB a block) above 48 KiB
+# 4096 rows are 256 threads of sixteen rows; their cross-warp exchange takes
+# 5 streams x 4096 rows x 4 B = 80 KiB of shared memory (the launch opts in
+# to the large dynamic carve-out above 48 KiB)
 MAX_TILE_LEN = 4096
 MAX_STREAMS = 5   # key, word and the three f32 position streams
 
@@ -75,6 +83,12 @@ def tile_sort_plain(streams: Sequence[torch.Tensor], tile_len: int,
     return tuple(c.index_select(0, order) for c in cols)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (a copy where a view is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def tile_sort(streams: Sequence[torch.Tensor], tile_len: int,
               num_keys: int = 1) -> Tuple[torch.Tensor, ...]:
     """Sort each contiguous ``tile_len``-row tile of the flat u32
@@ -97,7 +111,8 @@ def tile_sort(streams: Sequence[torch.Tensor], tile_len: int,
     if not streams[0].is_cuda:
         return tile_sort_plain(streams, tile_len, num_keys)
     dev = streams[0].device
-    ins: List[torch.Tensor] = [u32_bits(s).contiguous() for s in streams]
+    # the kernel loads and stores 16-byte vectors
+    ins: List[torch.Tensor] = [_aligned(u32_bits(s)) for s in streams]
     if any(s.device != dev for s in ins):
         raise ValueError("streams must share one device")
     outs = [torch.empty_like(s) for s in ins]

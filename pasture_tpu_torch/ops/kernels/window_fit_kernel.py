@@ -11,12 +11,25 @@ query's own frame, their count, their squared distances, their offsets
 Replaces: pasture_tpu/ops/kernels/window_fit_kernel.py
 window_fit_moments_pallas (``_make_kernel``).  Its (256, 128) lane blocks,
 prev/cur/next views, row-rolled bases and ``w <= 64`` limit are TPU
-artefacts and are not carried over.  Bound on the H100: operations — about
-``(2w + 1) * (38 + 2k)`` per query against 68 bytes moved.  Design
-(``csrc/window_fit.cu``): one thread per query, 256 queries per block,
-the block's candidate strip in shared memory as three float arrays, the k
-registers a fully unrolled local array of 8, 16 or 32, 11 accumulators in
-registers; ``s`` and ``m6`` written as (n, 3) and (n, 6) directly.
+artefacts and are not carried over.
+
+Bound on the H100: instruction issue and its latency. The work the result
+needs is, per query, ``(2w + 1) * 10`` operations (d2 once and one compare
+in each pass), ``2k * k`` to fill k sorted registers and ~20 per selected
+candidate, against 68 bytes moved. Design (``csrc/window_fit.cu``): 128
+threads a block, each thread two neighbouring queries that share the three
+shared-memory loads of every candidate row; the block's strip in shared
+memory as two phases per coordinate (no bank conflicts); pass 1 keeps
+exactly k sorted registers (one instance per k) and visits the rows
+centre-out, inserting a candidate only where some lane of the warp has it
+below its k-th register; pass 2 walks the shifts in the plain version's
+ascending order, marks the selected rows in a bit mask and runs the 11
+accumulators on those rows only. Both shortcuts are exact — the k smallest
+of a multiset do not depend on the order of the visits, and an unselected
+candidate's +0.0 term leaves an accumulator that is never -0.0 unchanged —
+so the kernel still equals the plain version bit for bit
+(``tests/test_torch_window_fit.py`` holds a model of the schedule to that).
+``s`` and ``m6`` are written as (n, 3) and (n, 6) directly.
 """
 
 from __future__ import annotations
@@ -28,25 +41,23 @@ import torch
 from . import _build
 
 __all__ = ["window_fit_moments", "window_fit_moments_plain",
-           "supports_window_fit", "LAUNCHES", "THREADS", "MAX_K"]
+           "supports_window_fit", "LAUNCHES", "MAX_K", "MAX_W"]
 
 #: launches of the kernel: one per call on CUDA tensors
 LAUNCHES = {"window_fit_moments": 0}
 
-THREADS = 256                 # WF_THREADS of csrc/window_fit.cu
 MAX_K = 32                    # the largest register instance
-_SMEM = 48 * 1024             # the strip lives in default shared memory
+MAX_W = 1920                  # a block's strip then fits 48 KB
 _FIN = 3.0e38                 # finite-candidate guard (inf marks padding)
 _MARGIN = 1.0 + 1e-6          # threshold margin of the TPU kernel
 
 
 def supports_window_fit(n: int, k: int, w: int, dtype) -> bool:
-    """What the kernel takes: f32, ``1 <= k <= 32``, ``1 <= w`` and a strip
-    of ``256 + 2w`` rows that fits 48 KB of shared memory (``w <= 1920``),
+    """What the kernel takes: f32, ``1 <= k <= 32``, ``1 <= w <= 1920`` (a
+    block's strip of ``256 + 2w`` rows then fits 48 KB of shared memory),
     at least one query and fewer than 2**31 rows."""
-    return (dtype == torch.float32 and 1 <= k <= MAX_K and w >= 1
-            and 12 * (THREADS + 2 * w) <= _SMEM and 1 <= n
-            and n + 2 * w < 1 << 31)
+    return (dtype == torch.float32 and 1 <= k <= MAX_K and 1 <= w <= MAX_W
+            and 1 <= n and n + 2 * w < 1 << 31)
 
 
 def _check_args(sp: torch.Tensor, pp: torch.Tensor, w: int) -> int:
@@ -125,7 +136,7 @@ def window_fit_moments(sp: torch.Tensor, pp: torch.Tensor, k: int, w: int
     n = _check_args(sp, pp, w)
     if not supports_window_fit(n, k, w, sp.dtype):
         raise ValueError(f"window_fit_moments takes f32, 1 <= k <= {MAX_K} "
-                         f"and 12 * (256 + 2w) <= {_SMEM} bytes; got "
+                         f"and 1 <= w <= {MAX_W}; got "
                          f"{sp.dtype}, n={n}, k={k}, w={w}")
     sp = sp.contiguous()
     pp = pp.contiguous()

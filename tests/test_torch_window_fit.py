@@ -2,7 +2,9 @@
 version (what a CPU tensor runs, and what the CUDA kernel equals bit for bit
 on the card) against the Pallas kernel in interpret mode and against a
 numpy sliding-window oracle; the port's ``window_fit`` against the JAX
-``window_fit`` on both of its paths."""
+``window_fit`` on both of its paths; and a model of the CUDA kernel's
+schedule (centre-out guarded insertion, selected-only accumulation)
+against the plain version, bit for bit."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -164,3 +166,85 @@ def test_window_fit_matches_jax_window_fit(rng):
     assert np.percentile(ax, 99) < 1e-3 and ax.max() < 1e-2
     np.testing.assert_allclose(got_c, xc, atol=2e-4)
     np.testing.assert_allclose(got_t, xt, rtol=1e-5, atol=1e-7)
+
+
+def _hard_inputs(rng, w):
+    """f32 ``(sp, pp)`` of 300 queries built to break a schedule that is
+    not exact: points of a coarse lattice (ties at the k-th distance) with
+    a tenth of them duplicates of their predecessor; points within 3e-23 of
+    the origin (offset products underflow to -0.0 and +0.0); a run of
+    ``2w + 3`` invalid candidates (empty windows); 2 % invalid elsewhere."""
+    lat = rng.integers(0, 3, (140, 3)).astype(np.float32)
+    dup = np.flatnonzero(rng.random(140) < 0.1)
+    dup = dup[dup > 0]
+    lat[dup] = lat[dup - 1]
+    tiny = rng.uniform(-3e-23, 3e-23, (140, 3)).astype(np.float32)
+    sp = np.concatenate([lat, tiny, lat[:20]])
+    cand = np.where(rng.random((300, 1)) < 0.02, np.inf, sp)
+    cand[150:150 + 2 * w + 3] = np.inf
+    pad = np.full((w, 3), np.inf, np.float32)
+    return sp, np.concatenate([pad, cand, pad]).astype(np.float32)
+
+
+def _schedule_model(sp, pp, k, w, q):
+    """The CUDA kernel's schedule for the query in slot ``q`` of its thread,
+    in plain PyTorch: pass 1 visits the thread's ``2w + 2`` strip rows
+    centre-out (row ``j`` is shift ``j - q``) and inserts a candidate only
+    where it is below the k-th register; pass 2 walks the shifts in
+    ascending order and adds to the accumulators only where a candidate is
+    selected."""
+    n = sp.shape[0]
+    qs = [sp[:, a] for a in range(3)]
+
+    def d_at(s):
+        cx = pp[s:s + n, 0]
+        d = [cx - qs[0], pp[s:s + n, 1] - qs[1], pp[s:s + n, 2] - qs[2]]
+        return cx, d, d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+
+    span = 2 * w + 2
+    c = span // 2
+    rows = [j for d in range(span - c) for j in (c + d, c - 1 - d) if j >= 0]
+    regs = [torch.full_like(qs[0], float("inf")) for _ in range(k)]
+    for j in rows:
+        if not 0 <= j - q <= 2 * w:
+            continue
+        v = d_at(j - q)[2]
+        enter = v < regs[k - 1]
+        new = [torch.minimum(regs[0], v)] + [
+            torch.minimum(regs[r], torch.maximum(regs[r - 1], v))
+            for r in range(1, k)]
+        regs = [torch.where(enter, a, b) for a, b in zip(new, regs)]
+    thr = regs[k - 1] * torch.tensor(wf._MARGIN, dtype=torch.float32)
+    acc = [torch.zeros_like(qs[0]) for _ in range(11)]
+    for s in range(2 * w + 1):
+        cx, (dx, dy, dz), d2 = d_at(s)
+        sel = (d2 <= thr) & (cx <= wf._FIN)
+        terms = (torch.ones_like(d2), d2, dx, dy, dz, dx * dx, dy * dy,
+                 dz * dz, dx * dy, dx * dz, dy * dz)
+        acc = [torch.where(sel, a + t, a) for a, t in zip(acc, terms)]
+    return (acc[0], acc[1], torch.stack(acc[2:5], dim=1),
+            torch.stack(acc[5:11], dim=1))
+
+
+@pytest.mark.parametrize("k,w", [(1, 4), (8, 2), (10, 8), (12, 16),
+                                 (17, 8), (32, 16)])
+@pytest.mark.parametrize("q", [0, 1])
+def test_kernel_schedule_model_equals_plain_bitwise(rng, k, w, q):
+    """The two identities the CUDA kernel's bit equality rests on: the k
+    smallest distances (and so the threshold) do not depend on the order
+    of the visits when a candidate at or above the k-th register is
+    skipped; and skipping an unselected candidate's +0.0 term leaves every
+    accumulator as it is (none is ever -0.0).  Bit for bit in f32, every
+    output, on inputs with ties, duplicates, empty windows and products
+    that underflow to -0.0."""
+    sp, pp = _hard_inputs(rng, w)
+    d = pp[w + 1:w + 301] - sp                   # the shift +1 offsets
+    prod = d[:, 0] * d[:, 1]
+    assert ((prod == 0) & np.signbit(prod)).any()     # -0.0 products occur
+    sp_t, pp_t = torch.from_numpy(sp), torch.from_numpy(pp)
+    got = _schedule_model(sp_t, pp_t, k, w, q)
+    want = wf.window_fit_moments_plain(sp_t, pp_t, k, w)
+    for g, p in zip(got, want):
+        assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+    assert (want[0] == 0).any()                       # empty windows
+    assert k >= 2 * w + 1 or (want[0] > k).any()      # ties admitted
