@@ -12,7 +12,10 @@ the CUDA toolkit.  It
    adversarial tiles (``tile_sort_sweep``), and K6 against its plain
    version bit for bit over k and window sizes on inputs with ties,
    duplicates, empty windows and underflowing products
-   (``window_fit_sweep``),
+   (``window_fit_sweep``), K3 in its three forms over tile lengths 1 to
+   4096, word layouts and adversarial tiles (``voxel_reduce_sweep``), and K5
+   over row counts, masks and row widths, nine columns a call
+   (``compact_sweep``),
 3. holds each kernel against its plain PyTorch version on the GPU at the
    shapes of the paths below — 4 194 304 points in 8192 tiles of 512 rows —
    and times kernel, plain version and, where one exists, the single
@@ -50,6 +53,7 @@ the CUDA toolkit.  It
 
 The ``kernels`` phase also holds K6 against its plain version at the
 normals path's shape and at the point-to-plane ICP's.  ``--profile`` adds
+a ``call_split`` line (the device operations of one K3 and one K5 call) and
 a ``profile`` line per path: one step's GPU time by kernel name.
 
 Each phase prints one JSON line.  Nothing is caught: any failure raises and
@@ -749,6 +753,209 @@ def phase_window_fit_sweep(dev: torch.device) -> None:
                       "seconds": time.perf_counter() - t0}), flush=True)
 
 
+REDUCE_SWEEP_TILE_LENS = (1, 3, 16, 17, 100, 512, 1000, 4096)
+REDUCE_SWEEP_CHUNKS = 320    # chunks of whole tiles a call: 40 CTAs of 512-row chunks
+REDUCE_SWEEP_KINDS = 7
+_INVALID = 0xFFFFFFFF
+
+
+def _sweep_field(shift: int, width: int, signed: bool) -> tuple:
+    """A mean field with the clip bounds of its integer type."""
+    lo, hi = ((-(1 << (width - 1)), (1 << (width - 1)) - 1) if signed
+              else (0, (1 << width) - 1))
+    return shift, width, signed, lo, hi
+
+
+#: (mode_bits, fields) of the reduce sweep: no fields; four narrow fields
+#: of widths 1-12 under an 8-bit mode; a signed 24-bit field; a 32-bit
+#: mode; 32-bit fields, unsigned (tile sums pass 2**31 and 2**32) and
+#: signed, which take the 64-bit sums; a 31-bit field (32-bit sums only
+#: for one-row tiles)
+REDUCE_SWEEP_WORDS = (
+    (0, ()),
+    (8, (_sweep_field(0, 1, False), _sweep_field(1, 7, True),
+         _sweep_field(8, 12, False), _sweep_field(20, 4, True))),
+    (8, (_sweep_field(0, 24, True),)),
+    (32, ()),
+    (0, (_sweep_field(0, 32, False),)),
+    (0, (_sweep_field(0, 32, True),)),
+    (0, (_sweep_field(0, 31, False),)),
+)
+
+
+def reduce_sweep_streams(tile_len: int, tiles: int, seed: int = 29):
+    """K3's adversarial inputs: numpy ``(key, word, rword)`` u32 and ``pos``
+    f32 ``(n, 3)``, every tile sorted by (key, word) as the tile sort
+    leaves it.  Tile ``t`` is of kind ``t % 7``: random runs; one run over
+    the whole tile, its words all >= 2**31; all keys distinct; all keys
+    invalid; runs of 16 rows on 16-row boundaries; runs of 32 rows whose
+    last third is invalid; runs of 32 rows shifted by one (each crosses a
+    32-row boundary).  Words repeat their predecessor 40 % of the time and
+    half of them have a top byte of 0-2 (mode ties); positions are NaN in
+    invalid rows."""
+    rng = np.random.default_rng(seed + tile_len)
+    n = tiles * tile_len
+    tile = np.repeat(np.arange(tiles), tile_len)
+    kind = tile % REDUCE_SWEEP_KINDS
+    r = np.tile(np.arange(tile_len), tiles)
+    run = np.select(
+        [kind == 0, kind == 2, kind == 4, kind == 5, kind == 6],
+        [rng.integers(0, tile_len // 3 + 2, n), r, r // 16, r // 32,
+         (r + 1) // 32], default=0)
+    key = (rng.integers(0, 1 << 28, tiles)[tile]
+           + run * rng.integers(1, 8, tiles)[tile]).astype(np.uint64)
+    key[(kind == 3) | ((kind == 5) & (3 * r >= 2 * tile_len))] = _INVALID
+    word = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    low = rng.random(n) < 0.5
+    word[low] = (word[low] & 0xFFFFFF) | (
+        rng.integers(0, 3, int(low.sum())).astype(np.uint64) << 24)
+    src = np.where(rng.random(n) < 0.4, 0, np.arange(n))
+    word = word[np.maximum.accumulate(src)]
+    word[kind == 1] |= 0x80000000
+    order = np.lexsort((word, key, tile))
+    key, word = key[order], word[order]
+    rword = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    pos = rng.uniform(-1000, 1000, (n, 3)).astype(np.float32)
+    pos[key == _INVALID] = np.nan
+    return (key.astype(np.uint32), word.astype(np.uint32),
+            rword.astype(np.uint32), pos)
+
+
+def check_reduce(streams, tile_len: int, mode_bits: int, fields, form: str,
+                 local_affine=None, qbits: int = 10) -> int:
+    """K3 in one form against its plain version: count and ``out_word``
+    exact; centroids bit for bit (exact-local, quantized) or within atol
+    1e-5 + rtol 1e-6 (exact-f32); rows past the count zero in both.
+    ``streams``: torch ``(key, word, rword, pos)``.  Returns the count."""
+    key, word, rword, pos = streams
+    bmin = torch.tensor([-3.0, 2.0, 1.0], device=key.device)
+    what = (f"fused_sorted_voxel_reduce ({form}, tile_len={tile_len}, "
+            f"mode_bits={mode_bits}, fields={fields})")
+    kw = {}
+    if form == "exact_f32":
+        kw["spos"] = tuple(pos[:, a].contiguous() for a in range(3))
+        args = (key, word, None, bmin, LEAF, mode_bits, fields, 0, 1.0,
+                tile_len, "floor")
+    else:
+        if form == "exact_local":
+            kw["local_affine"] = local_affine
+        args = (key, word, rword, bmin, LEAF, mode_bits, fields, qbits, 1.0,
+                tile_len, "floor")
+    gpos, gword, gcount = vr.fused_sorted_voxel_reduce_rows(*args, **kw)
+    ppos, pword, pcount = vr.fused_sorted_voxel_reduce_plain(*args, **kw)
+    torch.cuda.synchronize()
+    nv = int(gcount.item())
+    if nv != int(pcount.item()):
+        raise AssertionError(f"{what}: {nv} voxels, plain "
+                             f"{int(pcount.item())}")
+    if not torch.equal(u32_carrier(gword), pword):
+        raise AssertionError(f"{what}: out_word differs")
+    if form == "exact_f32":
+        same = torch.allclose(gpos, ppos, rtol=1e-6, atol=1e-5)
+    else:
+        same = torch.equal(gpos.view(torch.int32), ppos.view(torch.int32))
+    if not same:
+        raise AssertionError(f"{what}: centroids differ by "
+                             f"{(gpos - ppos).abs().max().item()}")
+    return nv
+
+
+def phase_voxel_reduce_sweep(dev: torch.device, affine) -> None:
+    """K3, all three forms, against its plain version over every tile
+    length in ``REDUCE_SWEEP_TILE_LENS`` and every word layout in
+    ``REDUCE_SWEEP_WORDS``, on :func:`reduce_sweep_streams`."""
+    t0 = time.perf_counter()
+    coeffs = kernels.exact_local_base_coeffs(
+        SCALE, ROT, TRANS, torch.zeros(3, device=dev), LEAF, "floor")
+    local_affine = (*affine, coeffs)
+    checks, sums = 0, {"int32": 0, "int64": 0}
+    for tile_len in REDUCE_SWEEP_TILE_LENS:
+        tiles = REDUCE_SWEEP_CHUNKS * max(1, vr.CHUNK_ROWS // tile_len)
+        key, word, rword, pos = reduce_sweep_streams(tile_len, tiles)
+        streams = tuple(torch.from_numpy(a.view(np.int32)).to(dev)
+                        for a in (key, word, rword)) + (
+            torch.from_numpy(pos).to(dev),)
+        for mode_bits, fields in REDUCE_SWEEP_WORDS:
+            if fields:
+                sums["int32" if vr.narrow_field_sums(fields, tile_len)
+                     else "int64"] += 1
+            for form, qbits in (("exact_local", 10), ("quantized", 7),
+                                ("exact_f32", 0)):
+                check_reduce(streams, tile_len, mode_bits, fields, form,
+                             local_affine, qbits)
+                checks += 1
+    if not (sums["int32"] and sums["int64"]):
+        raise AssertionError(f"the sweep missed an accumulator width: {sums}")
+    print(json.dumps({"phase": "voxel_reduce_sweep",
+                      "tile_lens": list(REDUCE_SWEEP_TILE_LENS),
+                      "chunks": REDUCE_SWEEP_CHUNKS,
+                      "word_layouts": len(REDUCE_SWEEP_WORDS),
+                      "field_sum_layouts": sums, "checks": checks,
+                      "all_equal": True,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
+COMPACT_SWEEP_NS = (1, 31, 2047, 2048, 2049, 65536, 4194303)
+COMPACT_SWEEP_KEEPS = ("all", "none", "alternate", "10%", "90%")
+#: (dtype, elements a row, element offset of the column's first row): rows
+#: of 1, 2, 3, 4, 8, 12, 16 and 17 bytes, four columns starting at an odd
+#: element; nine columns, so one call makes two write launches
+COMPACT_SWEEP_COLS = ((torch.uint8, 1, 0), (torch.int16, 1, 1),
+                      (torch.uint8, 3, 1), (torch.int32, 1, 0),
+                      (torch.int64, 1, 0), (torch.int32, 3, 1),
+                      (torch.int32, 4, 0), (torch.uint8, 17, 1),
+                      (torch.int32, 3, 0))
+
+
+def compact_sweep_inputs(n: int, keep: str, dev, gen):
+    """Random columns of ``COMPACT_SWEEP_COLS`` (views into larger buffers
+    where the offset is odd) and the mask of kind ``keep``."""
+    cols = []
+    for dt, per, off in COMPACT_SWEEP_COLS:
+        size = torch.empty((), dtype=dt).element_size()
+        raw = torch.randint(0, 256, ((n * per + off) * size,),
+                            dtype=torch.uint8, device=dev, generator=gen)
+        flat = raw.view(dt)[off:off + n * per]
+        cols.append(flat if per == 1 else flat.view(n, per))
+    idx = torch.arange(n, device=dev)
+    mask = {"all": idx >= 0, "none": idx < 0, "alternate": idx % 2 == 0,
+            "10%": torch.rand(n, device=dev, generator=gen) < 0.1,
+            "90%": torch.rand(n, device=dev, generator=gen) < 0.9}[keep]
+    return cols, mask
+
+
+def phase_compact_sweep(dev: torch.device) -> None:
+    """K5 against its plain version over ``COMPACT_SWEEP_NS`` x
+    ``COMPACT_SWEEP_KEEPS`` on nine columns of every row width: the count,
+    every kept row and the zero tail, byte for byte."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(31)
+    checks = 0
+    for n in COMPACT_SWEEP_NS:
+        for keep in COMPACT_SWEEP_KEEPS:
+            cols, mask = compact_sweep_inputs(n, keep, dev, gen)
+            got, gcount = ck.blockwise_compact(cols, mask)
+            want, wcount = ck.blockwise_compact_plain(cols, mask)
+            torch.cuda.synchronize()
+            if int(gcount.item()) != int(wcount.item()):
+                raise AssertionError(
+                    f"blockwise_compact (n={n}, keep {keep}): "
+                    f"{int(gcount.item())} kept, plain {int(wcount.item())}")
+            for (dt, per, off), g, w in zip(COMPACT_SWEEP_COLS, got, want):
+                if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+                    raise AssertionError(
+                        f"blockwise_compact (n={n}, keep {keep}): the "
+                        f"column of {per} x {dt} at offset {off} differs")
+            checks += 1
+    print(json.dumps({"phase": "compact_sweep", "ns": list(COMPACT_SWEEP_NS),
+                      "keeps": list(COMPACT_SWEEP_KEEPS),
+                      "row_bytes": [torch.empty((), dtype=dt).element_size()
+                                    * per for dt, per, _ in
+                                    COMPACT_SWEEP_COLS],
+                      "checks": checks, "all_equal": True,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
 def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
     """Each kernel against its plain version at the main path's shapes."""
     dev = batch.device
@@ -832,10 +1039,8 @@ def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
         24.0 * n, 10.0 * stages * (n // 2),
         library_ms=gpu_ms(library_sort, flush, reps=5))
 
-    # K3: count and out_word exact; centroids atol 1e-5 — the same f32
-    # operations on exact integer sums, so the kernel is expected to agree
-    # bit for bit and the tolerance only allows for a differently rounded
-    # division
+    # K3: count, out_word and centroids bit-exact — the same f32
+    # operations on exact integer sums
     rargs = (got[0], got[1], got[2], bmin, LEAF, _MODE_BITS, _FIELDS, 10,
              1.0, tile_len, "floor")
     kpos, kword, kcount = vr.fused_sorted_voxel_reduce_rows(
@@ -850,7 +1055,7 @@ def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
     if not torch.equal(u32_carrier(kword), pword):
         raise AssertionError("fused_sorted_voxel_reduce: out_word differs")
     err = (kpos - ppos).abs().max().item()
-    if not err <= 1e-5:
+    if not torch.equal(kpos.view(torch.int32), ppos.view(torch.int32)):
         raise AssertionError(f"fused_sorted_voxel_reduce: centroids differ "
                              f"by {err}")
     row("fused_sorted_voxel_reduce",
@@ -860,9 +1065,10 @@ def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
             *rargs, local_affine=local_affine), flush),
         gpu_ms(lambda: vr.fused_sorted_voxel_reduce_plain(
             *rargs, local_affine=local_affine), flush, reps=5),
-        # 12 B read per row, 16 B written per voxel of this run, 4 B per
-        # tile count; ~24 integer operations per row, ~80 per voxel
-        12.0 * n + 16.0 * nv + 4.0 * tiles, 24.0 * n + 80.0 * nv)
+        # 12 B read per row, 16 B written per output row (every voxel and
+        # every zeroed row past the count, each once), 4 B per tile;
+        # ~24 integer operations per row, ~80 per voxel
+        12.0 * n + 16.0 * n + 4.0 * tiles, 24.0 * n + 80.0 * nv)
 
     # K5: kept rows, count and zero tail equal to the plain version, on the
     # filter path's columns (12-, 4- and 1-byte rows) at ~90 % kept
@@ -960,7 +1166,7 @@ def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
         gpu_ms(lambda: vr.fused_sorted_voxel_reduce_rows(*qargs3), flush),
         gpu_ms(lambda: vr.fused_sorted_voxel_reduce_plain(*qargs3), flush,
                reps=5),
-        12.0 * n + 16.0 * nvq + 4.0 * tiles, 24.0 * n + 40.0 * nvq,
+        12.0 * n + 16.0 * n + 4.0 * tiles, 24.0 * n + 40.0 * nvq,
         path="path_quantized")
 
     # K4 at five streams (key, word | x, y, z as their bits): key streams
@@ -1014,7 +1220,7 @@ def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
                flush),
         gpu_ms(lambda: vr.fused_sorted_voxel_reduce_plain(*fargs, spos=spos),
                flush, reps=5),
-        20.0 * n + 16.0 * nvf + 4.0 * tiles, 24.0 * n + 40.0 * nvf,
+        20.0 * n + 16.0 * n + 4.0 * tiles, 24.0 * n + 40.0 * nvf,
         path="path_exact_f32")
     del got5, kpos, spos
 
@@ -1401,7 +1607,7 @@ def gpu_profile(step, steps: int = 5) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     ours = ("world_bounds", "voxel_head", "decode_transform_key",
-            "tile_sort", "voxel_reduce", "compact_count", "compact_write",
+            "tile_sort", "voxel_reduce", "compact_write", "pt_zero_tail",
             "window_fit")
     by_name = {}
     for e in prof.events():
@@ -1425,6 +1631,56 @@ def phase_profile(path: str, step, steps: int = 5) -> None:
     """One ``profile`` line: :func:`gpu_profile` of ``path``."""
     print(json.dumps({"phase": "profile", "path": path,
                       **gpu_profile(step, steps)}), flush=True)
+
+
+def call_split(fn, calls: int = 5) -> list:
+    """The device operations that one ``fn()`` call issues
+    (``torch.profiler`` over ``calls`` warm calls): name, launches per call
+    and device ms per call, in the order of first issue."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            op = ops.setdefault(e.name, [0, 0.0])
+            op[0] += 1
+            op[1] += e.device_time / 1e3
+    return [{"name": k[:60], "per_call": v[0] / calls,
+             "ms_per_call": v[1] / calls} for k, v in ops.items()]
+
+
+def phase_call_split(batch: PointBatch, affine, tiles: int, smi: str
+                     ) -> None:
+    """One ``call_split`` line: the device operations of one K3 call (the
+    exact-local form on the main path's tile-sorted streams) and of one K5
+    call (the ``kernels`` row's columns and mask), at the timed shapes."""
+    n = batch.capacity
+    tile_len = n // tiles
+    bmin, keys, rword, local_affine = pipeline_head(batch, affine)
+    s = kernels.tile_sort([u32_bits(keys), u32_bits(_pack_word(batch)),
+                           u32_bits(rword)], tile_len, num_keys=2)
+    rargs = (s[0], s[1], s[2], bmin, LEAF, _MODE_BITS, _FIELDS, 10, 1.0,
+             tile_len, "floor")
+    gen = torch.Generator(device=batch.device).manual_seed(11)
+    keep = torch.rand(n, device=batch.device, generator=gen) < 0.9
+    ccols = [batch.data[LOCAL], batch.data[INT], batch.data[CLS]]
+    k3 = call_split(lambda: vr.fused_sorted_voxel_reduce_rows(
+        *rargs, local_affine=local_affine))
+    k5 = call_split(lambda: ck.blockwise_compact(ccols, keep))
+    # K3: the status memset, the reduce, the zero tail, and the `cat` that
+    # assembles its parameter vector; K5: the memset, the write, the tail
+    for name, ops, most in (("K3", k3, 4), ("K5", k5, 3)):
+        if sum(op["per_call"] for op in ops) > most:
+            raise AssertionError(f"one {name} call issued {ops}")
+    print(json.dumps({"phase": "call_split", "points": n, "tiles": tiles,
+                      "fused_sorted_voxel_reduce": k3,
+                      "blockwise_compact": k5, "card": smi}), flush=True)
 
 
 def phase_path_normals(pos: np.ndarray, rows: list, smi: str) -> None:
@@ -1609,10 +1865,12 @@ def main() -> int:
     phase_build()
     phase_tile_sort_sweep(dev)
     phase_window_fit_sweep(dev)
+    affine = affine_on(dev)
+    phase_voxel_reduce_sweep(dev, affine)
+    phase_compact_sweep(dev)
     tiles = ZTILES * XTILES
     local_np, inten_np, cls_np = make_columns(N)
     batch = make_batch(local_np, inten_np, cls_np, device=dev)
-    affine = affine_on(dev)
     rows = phase_kernels(batch, affine, tiles)
     print(json.dumps({"phase": "kernels", "points": N, "tiles": tiles,
                       "names": [r["name"] for r in rows]}), flush=True)
@@ -1631,6 +1889,7 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         def shift(i):
             return (i % 7) * 1e-6
+        phase_call_split(batch, affine, tiles, smi)
         phase_profile("main_path", lambda i: pipeline_batch(
             batch, affine, tiles, shift=shift(i)))
         phase_profile("path_filter_grid", lambda i: path_filter_grid(wbatch),

@@ -57,20 +57,17 @@ SOURCES: Dict[str, Dict[str, Sequence]] = {
         "tile_sort_launch": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
     },
     "compact": {
-        # keep, n, blocks, counts, stream
-        "compact_count_launch": (P, I, I, P, P),
-        # keep, n, blocks, offsets, total, n_cols, src[], dst[], units[],
-        # unit[], stream
-        "compact_write_launch": (P, I, I, P, P, I, P, P, P, P, P),
+        # keep, n, blocks, status, count, ranked, n_cols, src[], dst[],
+        # row_bytes[], unit[], stream
+        "compact_launch": (P, I, I, P, P, I, I, P, P, P, P, P),
     },
     "voxel_reduce": {
-        # key, tiles, tile_len, counts, stream
-        "voxel_reduce_count_launch": (P, I, I, P, P),
-        # form, key, word, s3, s4, s5 (residual word | px, py, pz), tiles,
-        # tile_len, offsets, params, coeffs, qbits, mode_bits, n_fields,
-        # field_ints, field_floats, pos, out_word, stream
-        "voxel_reduce_write_launch": (I, P, P, P, P, P, I, I, P, P, P, I, I,
-                                      I, P, P, P, P, P),
+        # form, wide, key, word, s3, s4, s5 (residual word | px, py, pz),
+        # tiles, tile_len, chunks, status, count, params, coeffs, qbits,
+        # mode_bits, n_fields, field_ints, field_floats, pos, out_word,
+        # stream
+        "voxel_reduce_launch": (I, I, P, P, P, P, P, I, I, I, P, P, P, P, I,
+                                I, I, P, P, P, P, P),
     },
     "window_fit": {
         # sp, pp, n, k, w, cnt, tight, s, m6, stream

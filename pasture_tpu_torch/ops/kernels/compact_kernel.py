@@ -11,14 +11,19 @@ Replaces: pasture_tpu/ops/kernels/compact_kernel.py blockwise_compact_pallas
 power-of-two shifts because that machine has no scatter; a GPU thread
 simply writes its row where it belongs, so neither the ladder nor the merge
 is carried over.  Bound on the H100: bytes — the mask, every row read once,
-every kept row written once.  Design (``csrc/compact.cu``): a first launch
-counts kept rows per block of 2048 rows; ``torch.cumsum`` over those few
-thousand counts gives each block its global offset; the second launch ranks
-each kept row inside its block (warp ballot + a scan of the warp counts in
-shared memory) and copies the row of every column — as raw bytes, so one
-kernel serves 1-, 2-, 4- and 8-byte types and ``(N, C)`` columns — to
-``offset[block] + rank``; it also zeroes the output rows past the total, so
-no memset is launched.  Up to eight columns share one write launch.
+every output row (kept or zeroed) written once.  Design
+(``csrc/compact.cu``): one pass.  A block of 2048 rows, taken by ticket,
+first issues the 16-byte copies of its rows of every column (raw bytes, so
+one kernel serves every dtype and ``(N, C)`` columns) into shared memory,
+and while they are in flight reads its mask once (16 flags per 16-byte
+load), ranks its kept rows by popcounts and a scan, and takes its global
+offset from a decoupled look-back over the blocks before it (status words
+in a small zeroed scratch).  Then every kept row goes from shared memory
+to offset + rank.  The last block writes the kept count, which stays on
+the device; a second small launch zeroes the output rows past it, so the
+outputs come from ``torch.empty``.  Columns share a launch while they fit
+(:func:`launch_groups`); further launches take the offsets the first one
+published.
 """
 
 from __future__ import annotations
@@ -31,14 +36,35 @@ import torch
 from . import _build
 
 __all__ = ["blockwise_compact", "blockwise_compact_plain", "LAUNCHES",
-           "ROWS_PER_BLOCK", "MAX_COLS_PER_LAUNCH"]
+           "ROWS_PER_BLOCK", "MAX_COLS_PER_LAUNCH", "LAUNCH_ROW_BYTES",
+           "launch_groups"]
 
-#: launches of the kernel: one per call that compacts on the GPU (its count
-#: launch and its write launches together)
+#: launches of the kernel: one per call that compacts on the GPU (its write
+#: launches and zero-tail launches together)
 LAUNCHES = {"blockwise_compact": 0}
 
 ROWS_PER_BLOCK = 2048       # CP_ROWS of csrc/compact.cu
 MAX_COLS_PER_LAUNCH = 8     # CP_MAX_COLS
+LAUNCH_ROW_BYTES = 36864 - 32 * MAX_COLS_PER_LAUNCH   # CP_SLAB less padding
+
+
+def launch_groups(row_bytes: Sequence[int]) -> List[List[int]]:
+    """The columns (by index) of each write launch: in order, a new launch
+    when the next column would pass ``MAX_COLS_PER_LAUNCH`` columns or
+    ``LAUNCH_ROW_BYTES`` bytes of a row.  A wider row raises."""
+    groups: List[List[int]] = []
+    width = 0
+    for i, rb in enumerate(row_bytes):
+        if rb > LAUNCH_ROW_BYTES:
+            raise ValueError(f"rows of at most {LAUNCH_ROW_BYTES} bytes, "
+                             f"got {rb}")
+        if not groups or len(groups[-1]) == MAX_COLS_PER_LAUNCH \
+                or width + rb > LAUNCH_ROW_BYTES:
+            groups.append([])
+            width = 0
+        groups[-1].append(i)
+        width += rb
+    return groups
 
 
 def _check_args(cols: Sequence[torch.Tensor], keep: torch.Tensor) -> int:
@@ -98,32 +124,31 @@ def blockwise_compact(cols: Sequence[torch.Tensor], keep: torch.Tensor
     keep8 = keep.contiguous().view(torch.uint8)
     srcs = [c.contiguous() for c in cols]
     outs = [torch.empty_like(s) for s in srcs]
+    live = [(s, o) for s, o in zip(srcs, outs) if s.numel()]
+    if not live:                 # no column has a byte to move
+        return outs, keep.sum().to(torch.int32)
+    widths = [s.numel() // n * s.element_size() for s, _ in live]
+    groups = launch_groups(widths)
     blocks = (n + ROWS_PER_BLOCK - 1) // ROWS_PER_BLOCK
-    counts = torch.empty(blocks, dtype=torch.int32, device=dev)
+    # the ticket and the blocks' status words: the call's only memset
+    status = torch.zeros(blocks + 1, dtype=torch.int64, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
     lib = _build.library("compact")
     with torch.cuda.device(dev):
-        code = lib.compact_count_launch(keep8.data_ptr(), n, blocks,
-                                        counts.data_ptr(), _build.stream())
-        _build.check(code, "blockwise_compact (count)")
-        # block offsets: an exclusive scan of 'blocks' integers
-        incl = torch.cumsum(counts, 0, dtype=torch.int32)
-        offsets = (incl - counts).contiguous()
-        total = incl[-1]
-        live = [(s, o) for s, o in zip(srcs, outs) if s.numel()]
-        for at in range(0, len(live), MAX_COLS_PER_LAUNCH):
-            group = live[at:at + MAX_COLS_PER_LAUNCH]
+        for g, group in enumerate(groups):
             k = len(group)
-            src = (ctypes.c_void_p * k)(*[s.data_ptr() for s, _ in group])
-            dst = (ctypes.c_void_p * k)(*[o.data_ptr() for _, o in group])
-            units = (ctypes.c_int * k)()
-            unit = (ctypes.c_int * k)()
-            for i, (s, o) in enumerate(group):
-                row_bytes = s.numel() // n * s.element_size()
-                unit[i] = _unit_of(row_bytes, s.data_ptr(), o.data_ptr())
-                units[i] = row_bytes // unit[i]
-            code = lib.compact_write_launch(
-                keep8.data_ptr(), n, blocks, offsets.data_ptr(),
-                total.data_ptr(), k, src, dst, units, unit, _build.stream())
-            _build.check(code, "blockwise_compact (write)")
+            src = (ctypes.c_void_p * k)(*[live[i][0].data_ptr()
+                                          for i in group])
+            dst = (ctypes.c_void_p * k)(*[live[i][1].data_ptr()
+                                          for i in group])
+            row_bytes = (ctypes.c_int * k)(*[widths[i] for i in group])
+            unit = (ctypes.c_int * k)(*[
+                _unit_of(widths[i], live[i][0].data_ptr(),
+                         live[i][1].data_ptr()) for i in group])
+            code = lib.compact_launch(
+                keep8.data_ptr(), n, blocks, status.data_ptr(),
+                total.data_ptr(), int(g > 0), k, src, dst, row_bytes, unit,
+                _build.stream())
+            _build.check(code, "blockwise_compact")
     LAUNCHES["blockwise_compact"] += 1
     return outs, total

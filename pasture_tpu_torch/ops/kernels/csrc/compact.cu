@@ -1,168 +1,264 @@
 // K5 blockwise_compact: stable compaction of the kept rows of several
 // columns, globally, with the tail zeroed.
 //
-// A block owns CP_ROWS consecutive rows.  Launch 1 (count): kept rows per
-// block.  The caller's exclusive cumsum of those counts gives each block its
-// global output offset and the total.  Launch 2 (write): the block ranks its
-// kept rows again — one row per thread per pass, a warp ballot ranks the 32
-// rows of a warp, a scan of the (pass, warp) counts in shared memory ranks
-// the warps — and copies each kept row of every column to
-// offsets[block] + rank.  Reads and writes are coalesced: neighbouring
-// threads hold neighbouring rows, and kept rows land on neighbouring
-// destinations.  A row is its raw bytes, moved in units of 1, 2, 4 or
-// 8 bytes, so one kernel serves every column type and (N, C) columns.  Rows
-// of the output at or past the total are zeroed by the block that owns
-// their index, so the outputs need no memset.
+// One pass (Hopper design).  A block owns CP_ROWS consecutive rows, taken
+// by ticket.  It first issues the 16-byte asynchronous copies of its rows
+// of every column (raw bytes, so one kernel serves every dtype and (N, C)
+// columns) into shared memory, so they are in flight while it reads its
+// mask once (16 flags per 16-byte load), ranks its kept rows (popcounts of
+// 16-flag groups, a scan of the 128 group counts), publishes its kept
+// count and finds its global offset by the decoupled look-back of
+// scan.cuh.  Then each kept row goes from shared memory to offset + rank:
+// consecutive threads write consecutive units of the destination, reading
+// their rows through the inverse of the ranks.  Rows too wide for all the
+// columns' block of rows to fit CP_SLAB come in several parts.  The last
+// block writes the kept count; a second small launch zeroes the output
+// rows at or past it.  A call whose columns do not fit one launch
+// (CP_MAX_COLS columns, CP_SLAB bytes of rows) launches again for the
+// others; those launches take the offsets from the inclusive prefixes the
+// first one published, so they neither look back nor race.
+//
+// Bound: bytes (the mask and every row read once, every output row,
+// kept or zeroed, written once).
+#include <cuda_pipeline.h>
+
 #include "common.cuh"
+#include "scan.cuh"
 
 #define CP_THREADS 256
-#define CP_WARPS (CP_THREADS / 32)
-#define CP_PASSES 8
-#define CP_ROWS (CP_THREADS * CP_PASSES)
+#define CP_ROWS 2048
+#define CP_GROUPS (CP_ROWS / 16)     // 16 rows: one 16-byte load of flags
+#define CP_SLAB 36864                // bytes of the staged rows of a part
 #define CP_MAX_COLS 8
 
 struct CpCols {
     int n_cols;
-    const char* src[CP_MAX_COLS];
-    char* dst[CP_MAX_COLS];
-    int units[CP_MAX_COLS];   // units per row
-    int unit[CP_MAX_COLS];    // bytes per unit: 1, 2, 4 or 8
+    int part_rows;               // rows of a part: all columns fit CP_SLAB
+    const unsigned char* src[CP_MAX_COLS];
+    unsigned char* dst[CP_MAX_COLS];
+    int row_bytes[CP_MAX_COLS];
+    int unit[CP_MAX_COLS];       // bytes moved at a time: 1, 2, 4 or 8,
+                                 // dividing the row and both addresses
+    int smem_at[CP_MAX_COLS];    // the column's staging area, 16-aligned
 };
 
-// Ballots of this thread's warp for each pass into bits[]; exclusive ranks
-// of every (pass, warp) group into wrank[] (pass-major: rows of pass j come
-// before rows of pass j + 1); returns the block's kept count.
-__device__ __forceinline__ int cp_block_ranks(const uint8_t* __restrict__ keep,
-                                              long long base, int n,
-                                              uint32_t bits[CP_PASSES],
-                                              int* wrank) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int j = 0; j < CP_PASSES; ++j) {
-        const long long i = base + j * CP_THREADS + threadIdx.x;
-        const bool k = i < n && keep[i] != 0;
-        bits[j] = __ballot_sync(0xFFFFFFFFu, k);
-        if (lane == 0) wrank[j * CP_WARPS + warp] = __popc(bits[j]);
+// bits of the four bytes of w that are not zero
+__device__ __forceinline__ uint32_t cp_flags4(uint32_t w) {
+    const uint32_t t = __vcmpne4(w, 0u) & 0x08040201u;
+    return (t | (t >> 8) | (t >> 16) | (t >> 24)) & 0xFu;
+}
+
+// Issue the copies of bytes [0, bytes) of g into sm[off + x], off = g & 15,
+// so the 16-byte words of g and of sm line up.
+__device__ __forceinline__ void cp_load(unsigned char* sm,
+                                        const unsigned char* __restrict__ g,
+                                        int bytes, int tid) {
+    const int off = (int)((uintptr_t)g & 15);
+    const int lead = (16 - off) & 15;
+    const int head = lead < bytes ? lead : bytes;
+    if (tid < head) sm[off + tid] = g[tid];
+    const int nvec = (bytes - head) >> 4;
+    for (int i = tid; i < nvec; i += CP_THREADS)
+        __pipeline_memcpy_async(sm + off + head + 16 * i, g + head + 16 * i,
+                                16);
+    const int t0 = head + (nvec << 4);
+    if (tid < bytes - t0) sm[off + t0 + tid] = g[t0 + tid];
+}
+
+// rank of block row r (< CP_ROWS) among the block's kept rows
+__device__ __forceinline__ int cp_rank(const uint32_t* gmask,
+                                       const int* grank, int r) {
+    return grank[r >> 4] + __popc(gmask[r >> 4] & ((1u << (r & 15)) - 1u));
+}
+
+// Write the kept rows of ranks [k0, k1) (block rows from r0 on, the row of
+// block row r0 at in) to their places (rank 0 at out), in units of U, upr
+// units a row: consecutive threads write consecutive units, each reading
+// its row through the inverse of the ranks.
+template <typename U>
+__device__ __forceinline__ void cp_gather(const unsigned char* in,
+                                          unsigned char* __restrict__ out,
+                                          int r0, int k0, int k1, int upr,
+                                          const uint16_t* row_of, int tid) {
+    const U* src = (const U*)in;
+    U* __restrict__ dst = (U*)out;
+    if (upr == 1) {
+        for (int w = k0 + tid; w < k1; w += CP_THREADS)
+            dst[w] = src[row_of[w] - r0];
+        return;
     }
+    for (int w = k0 * upr + tid; w < k1 * upr; w += CP_THREADS) {
+        const int q = w / upr;
+        dst[w] = src[(row_of[q] - r0) * upr + (w - q * upr)];
+    }
+}
+
+// Issue the copies of block rows [r0, r0 + nr) of every column.
+__device__ __forceinline__ void cp_stage(const CpCols& cols,
+                                         unsigned char* sm, long long row0,
+                                         int r0, int nr, int tid) {
+    for (int c = 0; c < cols.n_cols; ++c)
+        cp_load(sm + cols.smem_at[c],
+                cols.src[c] + (row0 + r0) * cols.row_bytes[c],
+                nr * cols.row_bytes[c], tid);
+    __pipeline_commit();
+}
+
+// first launch: ranked == 0 (ticket and look-back); later launches of the
+// same call: ranked == 1 (block b's offset is the inclusive prefix block
+// b - 1 published).
+__global__ void __launch_bounds__(CP_THREADS)
+compact_write(const uint8_t* __restrict__ keep, int n, int blocks,
+              CpCols cols, int ranked,
+              unsigned long long* __restrict__ status,
+              int* __restrict__ count) {
+    extern __shared__ __align__(16) unsigned char cp_sm[];
+    __shared__ uint32_t gmask[CP_GROUPS];
+    __shared__ int grank[CP_GROUPS];
+    __shared__ uint16_t row_of[CP_ROWS];   // the block row of each rank
+    __shared__ int warp_total[CP_GROUPS / 32];
+    __shared__ int s_block, s_excl;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    // status[0] is the ticket, status[1 + b] block b's status word
+    if (tid == 0)
+        s_block = ranked ? (int)blockIdx.x : (int)atomicAdd(status, 1ull);
     __syncthreads();
-    __shared__ int total;
-    if (warp == 0) {
-        // 64 counts, two per lane
-        const int a = wrank[2 * lane], b = wrank[2 * lane + 1];
-        int incl = a + b;
+    const int b = s_block;
+    const long long row0 = (long long)b * CP_ROWS;
+    const int rows = n - row0 < CP_ROWS ? (int)(n - row0) : CP_ROWS;
+    const int part = cols.part_rows;
+
+    // the first part's copies go out before the ranking
+    cp_stage(cols, cp_sm, row0, 0, rows < part ? rows : part, tid);
+
+    // the mask, once: group g = tid < CP_GROUPS holds rows 16g .. 16g + 15
+    uint32_t m = 0;
+    if (tid < CP_GROUPS) {
+        const int r = tid * 16;
+        const uint8_t* kp = keep + row0 + r;
+        if (r + 16 <= rows && (((uintptr_t)kp) & 15) == 0) {
+            const uint4 v = *(const uint4*)kp;
+            m = cp_flags4(v.x) | (cp_flags4(v.y) << 4)
+                | (cp_flags4(v.z) << 8) | (cp_flags4(v.w) << 12);
+        } else {
+            for (int i = 0; i < 16 && r + i < rows; ++i)
+                m |= (kp[i] != 0 ? 1u : 0u) << i;
+        }
+    }
+    const int cnt = __popc(m);
+    int incl = cnt;
+    if (tid < CP_GROUPS) {
+#pragma unroll
         for (int d = 1; d < 32; d <<= 1) {
-            const int y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+            const int y = __shfl_up_sync(PT_FULL_MASK, incl, d);
             if (lane >= d) incl += y;
         }
-        const int excl = incl - (a + b);
-        wrank[2 * lane] = excl;
-        wrank[2 * lane + 1] = excl + a;
-        if (lane == 31) total = incl;
+        if (lane == 31) warp_total[warp] = incl;
     }
     __syncthreads();
-    return total;
-}
-
-__global__ void __launch_bounds__(CP_THREADS)
-compact_count(const uint8_t* __restrict__ keep, int n,
-              int* __restrict__ counts) {
-    __shared__ int wrank[CP_PASSES * CP_WARPS];
-    uint32_t bits[CP_PASSES];
-    const int total =
-        cp_block_ranks(keep, (long long)blockIdx.x * CP_ROWS, n, bits, wrank);
-    if (threadIdx.x == 0) counts[blockIdx.x] = total;
-}
-
-template <typename U>
-__device__ __forceinline__ void cp_move(const char* src, char* dst,
-                                        long long from, long long to,
-                                        int units) {
-    const U* s = (const U*)src + from * units;
-    U* d = (U*)dst + to * units;
-    for (int u = 0; u < units; ++u) d[u] = s[u];
-}
-
-template <typename U>
-__device__ __forceinline__ void cp_zero(char* dst, long long row, int units) {
-    U* d = (U*)dst + row * units;
-    for (int u = 0; u < units; ++u) d[u] = (U)0;
-}
-
-__global__ void __launch_bounds__(CP_THREADS)
-compact_write(const uint8_t* __restrict__ keep, int n,
-              const int* __restrict__ offsets,
-              const int* __restrict__ total_ptr, CpCols cols) {
-    __shared__ int wrank[CP_PASSES * CP_WARPS];
-    uint32_t bits[CP_PASSES];
-    const long long base = (long long)blockIdx.x * CP_ROWS;
-    cp_block_ranks(keep, base, n, bits, wrank);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const long long out_base = offsets[blockIdx.x];
-    const long long total = *total_ptr;
+    int below = 0, kept = 0;
 #pragma unroll
-    for (int j = 0; j < CP_PASSES; ++j) {
-        const long long i = base + j * CP_THREADS + threadIdx.x;
-        if (i >= n) continue;
-        if ((bits[j] >> lane) & 1u) {
-            const long long o = out_base + wrank[j * CP_WARPS + warp]
-                + __popc(bits[j] & ((1u << lane) - 1u));
-            for (int c = 0; c < cols.n_cols; ++c) {
-                switch (cols.unit[c]) {
-                case 8: cp_move<uint64_t>(cols.src[c], cols.dst[c], i, o, cols.units[c]); break;
-                case 4: cp_move<uint32_t>(cols.src[c], cols.dst[c], i, o, cols.units[c]); break;
-                case 2: cp_move<uint16_t>(cols.src[c], cols.dst[c], i, o, cols.units[c]); break;
-                default: cp_move<uint8_t>(cols.src[c], cols.dst[c], i, o, cols.units[c]);
-                }
+    for (int w = 0; w < CP_GROUPS / 32; ++w) {
+        below += w < warp ? warp_total[w] : 0;
+        kept += warp_total[w];
+    }
+    if (tid < CP_GROUPS) {
+        gmask[tid] = m;
+        grank[tid] = below + incl - cnt;
+    }
+    __syncthreads();
+    for (int r = tid; r < rows; r += CP_THREADS)
+        if ((gmask[r >> 4] >> (r & 15)) & 1u)
+            row_of[cp_rank(gmask, grank, r)] = (uint16_t)r;
+    if (warp == 0) {
+        const int excl =
+            ranked ? (b == 0 ? 0 : (int)(uint32_t)status[b])
+                   : pt_publish_and_look_back(status + 1, b, blocks, kept,
+                                              count, lane);
+        if (lane == 0) s_excl = excl;
+    }
+
+    for (int r0 = 0; r0 < rows; r0 += part) {
+        const int nr = rows - r0 < part ? rows - r0 : part;
+        const int k0 = cp_rank(gmask, grank, r0);
+        const int k1 =
+            r0 + nr == rows ? kept : cp_rank(gmask, grank, r0 + nr);
+        __pipeline_wait_prior(0);
+        __syncthreads();
+        for (int c = 0; c < cols.n_cols; ++c) {
+            const int rb = cols.row_bytes[c];
+            const unsigned char* in = cp_sm + cols.smem_at[c]
+                + ((uintptr_t)(cols.src[c] + (row0 + r0) * rb) & 15);
+            unsigned char* out = cols.dst[c] + (long long)s_excl * rb;
+            const int upr = rb / cols.unit[c];
+            switch (cols.unit[c]) {
+            case 8: cp_gather<uint64_t>(in, out, r0, k0, k1, upr, row_of,
+                                        tid);
+                    break;
+            case 4: cp_gather<uint32_t>(in, out, r0, k0, k1, upr, row_of,
+                                        tid);
+                    break;
+            case 2: cp_gather<uint16_t>(in, out, r0, k0, k1, upr, row_of,
+                                        tid);
+                    break;
+            default: cp_gather<uint8_t>(in, out, r0, k0, k1, upr, row_of,
+                                        tid);
             }
         }
-        // output row i itself: no kept row lands at or past the total
-        if (i >= total) {
-            for (int c = 0; c < cols.n_cols; ++c) {
-                switch (cols.unit[c]) {
-                case 8: cp_zero<uint64_t>(cols.dst[c], i, cols.units[c]); break;
-                case 4: cp_zero<uint32_t>(cols.dst[c], i, cols.units[c]); break;
-                case 2: cp_zero<uint16_t>(cols.dst[c], i, cols.units[c]); break;
-                default: cp_zero<uint8_t>(cols.dst[c], i, cols.units[c]);
-                }
-            }
+        if (r0 + part < rows) {
+            __syncthreads();      // every thread is done with this part
+            cp_stage(cols, cp_sm, row0, r0 + part,
+                     rows - r0 - part < part ? rows - r0 - part : part, tid);
         }
     }
 }
 
-static_assert(CP_PASSES * CP_WARPS == 64, "the rank scan holds two counts per lane");
-
-// blocks must be ceil(n / CP_ROWS): the caller sized counts / offsets by it
-extern "C" int compact_count_launch(const void* keep, int n, int blocks,
-                                    void* counts, void* stream) {
-    if (n <= 0 || blocks != (n + CP_ROWS - 1) / CP_ROWS)
-        return (int)cudaErrorInvalidValue;
-    compact_count<<<blocks, CP_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)keep, n, (int*)counts);
-    return (int)cudaGetLastError();
-}
-
-// src, dst: host arrays of n_cols device pointers; units, unit: host arrays
-// of n_cols ints.
-extern "C" int compact_write_launch(const void* keep, int n, int blocks,
-                                    const void* offsets, const void* total,
-                                    int n_cols, const void* const* src,
-                                    void* const* dst, const int* units,
-                                    const int* unit, void* stream) {
+// blocks must be ceil(n / CP_ROWS): the caller sized status to blocks + 1
+// zeroed int64 words.  src, dst: host arrays of n_cols device pointers;
+// row_bytes, unit: host arrays of n_cols ints, the row bytes summing to at
+// most CP_SLAB - 32 * CP_MAX_COLS.  count: an int32 the first launch of a
+// call (ranked == 0) sets to the kept count.  Launches the write, then the
+// zero tail of these columns.
+extern "C" int compact_launch(const void* keep, int n, int blocks,
+                              void* status, void* count, int ranked,
+                              int n_cols, const void* const* src,
+                              void* const* dst, const int* row_bytes,
+                              const int* unit, void* stream) {
     if (n <= 0 || blocks != (n + CP_ROWS - 1) / CP_ROWS || n_cols < 1
         || n_cols > CP_MAX_COLS)
         return (int)cudaErrorInvalidValue;
     CpCols cols;
+    PtTail tail;
     cols.n_cols = n_cols;
+    long long bytes = 0;
     for (int c = 0; c < CP_MAX_COLS; ++c) {
         const bool on = c < n_cols;
-        cols.src[c] = on ? (const char*)src[c] : nullptr;
-        cols.dst[c] = on ? (char*)dst[c] : nullptr;
-        cols.units[c] = on ? units[c] : 0;
+        cols.src[c] = on ? (const unsigned char*)src[c] : nullptr;
+        cols.dst[c] = on ? (unsigned char*)dst[c] : nullptr;
+        cols.row_bytes[c] = on ? row_bytes[c] : 0;
         cols.unit[c] = on ? unit[c] : 1;
-        if (on && unit[c] != 1 && unit[c] != 2 && unit[c] != 4 && unit[c] != 8)
+        if (on && (row_bytes[c] < 1 || (unit[c] != 1 && unit[c] != 2
+                                        && unit[c] != 4 && unit[c] != 8)
+                   || row_bytes[c] % unit[c] != 0))
             return (int)cudaErrorInvalidValue;
+        bytes += cols.row_bytes[c];
+        tail.ptr[c] = (char*)cols.dst[c];
+        tail.row_bytes[c] = cols.row_bytes[c];
     }
-    compact_write<<<blocks, CP_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)keep, n, (const int*)offsets, (const int*)total, cols);
-    return (int)cudaGetLastError();
+    if (bytes > CP_SLAB - 32 * CP_MAX_COLS) return (int)cudaErrorInvalidValue;
+    const long long fit = (CP_SLAB - 32 * CP_MAX_COLS) / bytes;
+    cols.part_rows = fit < CP_ROWS ? (int)fit : CP_ROWS;
+    int smem = 0;
+    for (int c = 0; c < CP_MAX_COLS; ++c) {
+        cols.smem_at[c] = smem;
+        if (c < n_cols)
+            smem += (cols.part_rows * cols.row_bytes[c] + 16 + 15) & ~15;
+    }
+    compact_write<<<blocks, CP_THREADS, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)keep, n, blocks, cols, ranked,
+        (unsigned long long*)status, (int*)count);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    return (int)pt_launch_zero_tail(tail, n_cols, (const int*)count, n,
+                                    (cudaStream_t)stream);
 }

@@ -21,17 +21,23 @@ Replaces: pasture_tpu/ops/kernels/voxel_reduce_kernel.py
 fused_sorted_voxel_reduce (_make_kernel with _seg_totals, _seg_max,
 _tiered_ladder, _compact10), all three forms, together with the merge of
 per-block outputs that followed it there (ops/compact.py _merge_tiles).
-Bound on the H100: bytes — 12 B (20 B for exact-f32) read per row + 16 B
-written per voxel.
-Design (``csrc/voxel_reduce.cu``): one block per sort tile holds the tile
-in shared memory; run-start flags and a block-wide scan rank each voxel in
-its tile; the thread owning a run start walks the run (a handful of
-points) accumulating exact integer sums and the run-length mode; rows are
-written at a global offset taken from an exclusive cumsum of the per-tile
-voxel counts that a first, key-only launch produced — the output is
-globally compacted in (tile, Morton) order with no merge pass.
+Bound on the H100: bytes — 12 B (20 B for exact-f32) read per row, and
+every output row written once: 16 B per voxel and per zeroed row alike.
+Design (``csrc/voxel_reduce.cu``): one launch, one pass.  A warp stages a
+chunk of whole tiles (512 rows) in shared memory with 16-byte asynchronous
+copies and walks it 32 rows a round, a row a lane: ballots of the
+run-start flags rank each voxel in its chunk.  A CTA's eight chunks add
+their counts, and the CTA's global offset comes from a decoupled look-back
+over the CTAs before it (numbered by ticket, status words in a small
+zeroed scratch).  The lane holding a run's start walks the run (a handful
+of points) and writes the voxel at offset + rank — globally compacted in
+(tile, Morton) order with no merge pass.  The last CTA writes the voxel
+count, which stays on the device; a second small launch zeroes the rows at
+or past it, so the outputs come from ``torch.empty`` and no row is written
+twice.
 
-Integer sums are exact (int64); a mean is ``float32(sum) / float32(count)``.
+Integer sums are exact (int32 where :func:`narrow_field_sums` proves it,
+else int64); a mean is ``float32(sum) / float32(count)``.
 That equals the f32 running sum of the reference whenever the latter is
 exact (sums below 2**24).  The exact-local and quantized forms therefore
 equal their plain versions bit for bit.  The exact-f32 form sums floats:
@@ -55,10 +61,11 @@ from .fused_transform import _f32, _int_cell_base
 
 __all__ = ["fused_sorted_voxel_reduce", "fused_sorted_voxel_reduce_rows",
            "fused_sorted_voxel_reduce_plain", "supports_fused_reduce",
-           "LAUNCHES", "MAX_TILE_LEN", "MAX_FIELDS"]
+           "narrow_field_sums", "chunk_count", "LAUNCHES", "MAX_TILE_LEN",
+           "MAX_FIELDS", "CHUNK_ROWS"]
 
-#: launches of the kernel by position form (the count and the write launch
-#: of one call count as one)
+#: launches of the kernel by position form (the reduce launch and the
+#: zero-tail launch of one call count as one)
 LAUNCHES = {"fused_sorted_voxel_reduce": 0,             # exact-local
             "fused_sorted_voxel_reduce_quantized": 0,
             "fused_sorted_voxel_reduce_exact_f32": 0}
@@ -68,6 +75,7 @@ _INVALID = 0xFFFFFFFF
 # holds 5 streams = 80 KiB, within the 227 KiB a block can opt in to
 MAX_TILE_LEN = 4096
 MAX_FIELDS = 4
+CHUNK_ROWS = 512     # VR_CHUNK of csrc/voxel_reduce.cu: a warp's whole tiles
 
 # position forms, as csrc/voxel_reduce.cu numbers them
 _EXACT_LOCAL, _QUANTIZED, _EXACT_F32 = 0, 1, 2
@@ -103,6 +111,27 @@ def _check_args(skey, tile_len, fields, qbits, sqword, spos, local_affine
     if spos is not None:
         return _EXACT_F32
     return _EXACT_LOCAL if local_affine is not None else _QUANTIZED
+
+
+def chunk_count(tiles: int, tile_len: int) -> int:
+    """Chunks of a call: a warp's share of its CTA's rows, the whole tiles
+    that fit ``CHUNK_ROWS`` rows (one tile when tiles are longer)."""
+    chunk_tiles = max(1, CHUNK_ROWS // tile_len)
+    return -(-tiles // chunk_tiles)
+
+
+def narrow_field_sums(fields: Sequence[Tuple[int, int, bool, int, int]],
+                      tile_len: int) -> bool:
+    """Whether the kernel may sum every mean field in int32: a run lies in
+    one tile, so its sum is below ``2**(width + ceil(log2(tile_len)))`` in
+    magnitude, and ``width + ceil(log2(tile_len)) <= 31`` keeps it in
+    range; the clip bounds, as the f32 values the kernel compares with,
+    must be int32 values too, for the mean's conversion back."""
+    grow = (int(tile_len) - 1).bit_length()          # ceil(log2(tile_len))
+    return all(int(fw) + grow <= 31
+               and -2.0 ** 31 <= float(np.float32(imin))
+               and float(np.float32(imax)) < 2.0 ** 31
+               for _, fw, _, imin, imax in fields)
 
 
 def _scale_q(qbits: int, qwindow: float) -> float:
@@ -315,30 +344,28 @@ def fused_sorted_voxel_reduce_rows(
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    counts = torch.empty(tiles, dtype=torch.int32, device=dev)
-    pos = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    out_word = torch.zeros(n, dtype=torch.int32, device=dev)
+    chunks = chunk_count(tiles, tile_len)
+    # the ticket and the CTAs' status words (no more CTAs than chunks): the
+    # call's only memset
+    status = torch.zeros(chunks + 1, dtype=torch.int64, device=dev)
+    num_voxels = torch.empty((), dtype=torch.int32, device=dev)
+    pos = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    out_word = torch.empty(n, dtype=torch.int32, device=dev)
     lib = _build.library("voxel_reduce")
     with torch.cuda.device(dev):
-        code = lib.voxel_reduce_count_launch(
-            key.data_ptr(), tiles, tile_len, counts.data_ptr(),
-            _build.stream())
-        _build.check(code, "fused_sorted_voxel_reduce (count)")
-        # tile offsets: an exclusive scan of 'tiles' integers
-        incl = torch.cumsum(counts, 0, dtype=torch.int32)
-        offsets = (incl - counts).contiguous()
         # streams 3 to 5: the residual word and two nulls, or px, py, pz
         operands = [ptr(c) for c in rest] + [None] * (3 - len(rest))
-        code = lib.voxel_reduce_write_launch(
-            form, key.data_ptr(), word.data_ptr(), *operands, tiles,
-            tile_len, offsets.data_ptr(), ptr(params), ptr(coef),
-            int(qbits) if form == _QUANTIZED else 0, int(mode_bits), nf,
-            ctypes.cast(f_ints, ctypes.c_void_p),
-            ctypes.cast(f_floats, ctypes.c_void_p),
-            pos.data_ptr(), out_word.data_ptr(), _build.stream())
-        _build.check(code, "fused_sorted_voxel_reduce (write)")
+        code = lib.voxel_reduce_launch(
+            form, int(not narrow_field_sums(fields, tile_len)),
+            key.data_ptr(), word.data_ptr(), *operands, tiles, tile_len,
+            chunks, status.data_ptr(), num_voxels.data_ptr(), ptr(params),
+            ptr(coef), int(qbits) if form == _QUANTIZED else 0,
+            int(mode_bits), nf, ctypes.cast(f_ints, ctypes.c_void_p),
+            ctypes.cast(f_floats, ctypes.c_void_p), pos.data_ptr(),
+            out_word.data_ptr(), _build.stream())
+        _build.check(code, "fused_sorted_voxel_reduce")
     LAUNCHES[_FORM_COUNTER[form]] += 1
-    return pos, out_word, incl[-1]
+    return pos, out_word, num_voxels
 
 
 def fused_sorted_voxel_reduce(
