@@ -13,9 +13,12 @@ the CUDA toolkit.  It
    version bit for bit over k and window sizes on inputs with ties,
    duplicates, empty windows and underflowing products
    (``window_fit_sweep``), K3 in its three forms over tile lengths 1 to
-   4096, word layouts and adversarial tiles (``voxel_reduce_sweep``), and K5
-   over row counts, masks and row widths, nine columns a call
-   (``compact_sweep``),
+   4096, word layouts and adversarial tiles (``voxel_reduce_sweep``), K5
+   over row counts, masks and row widths, nine columns a call, and rows
+   wider than one launch takes (``compact_sweep``), and K1 bit for bit over
+   point counts 1 to 4 194 305, base views 1-3 rows off a 16-byte
+   boundary, the extreme point first, last and in the scalar tail, repeated
+   calls, two streams, host and device parameters (``world_bounds_sweep``),
 3. holds each kernel against its plain PyTorch version on the GPU at the
    shapes of the paths below — 4 194 304 points in 8192 tiles of 512 rows —
    and times kernel, plain version and, where one exists, the single
@@ -49,12 +52,17 @@ the CUDA toolkit.  It
    scans (the generic voxel path on K5, exact point-to-plane ICP) against
    the known trajectory, K5 against its plain version on one scan's own
    inputs, then the pose graph (dense and CG) bringing knocked keyframes
-   back to their odometry poses.
+   back to their odometry poses;
+7. drives the merge of tiles before a voxel step (``path_concat_convert``):
+   ``PointBatch.concatenate`` of eight padded batches (K5 once), then
+   ``convert_batch_schema`` and an LAS encode of the decoded positions that
+   must give the locals back, against the same calls on the CPU.
 
 The ``kernels`` phase also holds K6 against its plain version at the
 normals path's shape and at the point-to-plane ICP's.  ``--profile`` adds
-a ``call_split`` line (the device operations of one K3 and one K5 call) and
-a ``profile`` line per path: one step's GPU time by kernel name.
+a ``call_split`` line (the device operations of one K1, one K3 and one K5
+call) and a ``profile`` line per path: one step's GPU time by kernel
+name.
 
 Each phase prints one JSON line.  Nothing is caught: any failure raises and
 the process exits non-zero.  Without a CUDA device it raises at once; it
@@ -79,10 +87,13 @@ from pasture_tpu_torch.algorithms import normals as normals_mod
 from pasture_tpu_torch.buffers.device import PointBatch
 from pasture_tpu_torch.buffers.host import HostPointBuffer
 from pasture_tpu_torch.layout import attributes as att
+from pasture_tpu_torch.layout import dtypes as dt
 from pasture_tpu_torch.layout.schema import PointSchema
 from pasture_tpu_torch.math.morton import morton_encode_u64
-from pasture_tpu_torch.ops import (filter_batch, u32_bits, u32_carrier,
-                                   voxel_downsample, voxel_indices)
+from pasture_tpu_torch.ops import (convert_batch_schema, decode_las_positions,
+                                   encode_las_positions, filter_batch,
+                                   u32_bits, u32_carrier, voxel_downsample,
+                                   voxel_indices)
 from pasture_tpu_torch.ops import kernels
 from pasture_tpu_torch.ops.kernels import _build
 from pasture_tpu_torch.ops.kernels import compact_kernel as ck
@@ -134,6 +145,18 @@ REG_VOXEL = 0.25
 # about a random axis (rad) and a shift of random direction (m)
 REG_KNOCK_ROT = np.deg2rad(2.0)
 REG_KNOCK_T = 0.05
+# merging tiles before a voxel step: padded batches, their capacity, the
+# LAS locals' attribute and their scale and (UTM-like) offset
+CONCAT_BATCHES = 8
+CONCAT_CAPACITY = 1 << 19
+LAS_LOCAL = att.PointAttribute(LOCAL, dt.VEC3I32)
+LAS_SCALE = np.asarray([0.001, 0.001, 0.001])
+LAS_OFFSET = np.asarray([500000.0, 4000000.0, 0.0])
+#: the merged batch's target schema: f32 intensity, and GpsTime, which no
+#: input has (zero-filled)
+CONVERT_SCHEMA = PointSchema.from_attributes(
+    [LAS_LOCAL, att.INTENSITY.with_dtype(dt.F32), att.CLASSIFICATION,
+     att.GPS_TIME])
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and the float32 rate outside the tensor cores, which is also what the
@@ -493,6 +516,56 @@ def trajectory_error(traj: np.ndarray, step: float = REG_STEP) -> float:
     ``step``."""
     return float(np.abs(np.linalg.norm(np.diff(traj, axis=0), axis=1)
                         - step).max())
+
+
+# ---- merging tiles -------------------------------------------------------------
+
+def concat_batches(device=None, seed: int = 41) -> list:
+    """``CONCAT_BATCHES`` padded batches of ``CONCAT_CAPACITY`` rows, each
+    filled to between half and all of it (seeded), with LAS locals,
+    Intensity and Classification made on ``device`` (``None``: the GPU).
+    The padding rows hold random data too: none of it may reach the
+    merged batch."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(CONCAT_CAPACITY // 2, CONCAT_CAPACITY + 1,
+                          CONCAT_BATCHES)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    schema = PointSchema.from_attributes(
+        [LAS_LOCAL, att.INTENSITY, att.CLASSIFICATION])
+    cap = CONCAT_CAPACITY
+
+    def rand(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, dtype=dtype, device=dev,
+                             generator=gen)
+    return [PointBatch.from_columns(schema, {
+        LOCAL: rand(-2_000_000, 2_000_000, (cap, 3), torch.int32),
+        INT: rand(0, 65536, (cap,), torch.int32),
+        CLS: rand(0, 32, (cap,), torch.uint8)}, count=int(c), device=dev)
+        for c in counts]
+
+
+def batches_on(batches: list, device) -> list:
+    """The same batches, copied to ``device``."""
+    return [PointBatch({k: v.to(device) for k, v in b.data.items()},
+                       b.count.to(device), b.schema, b.meta, b.policy)
+            for b in batches]
+
+
+def path_concat_convert(batches: list):
+    """Merge the batches (valid rows first, in order), convert the merged
+    batch to ``CONVERT_SCHEMA``, and encode the f64 world positions of its
+    LAS locals back to locals.  Returns ``(merged, converted, encoded)``."""
+    merged = PointBatch.concatenate(batches)
+    conv = convert_batch_schema(merged, CONVERT_SCHEMA,
+                                fill_missing_with_default=True)
+    dev = merged.device
+    scale = torch.from_numpy(LAS_SCALE).to(dev)
+    offset = torch.from_numpy(LAS_OFFSET).to(dev)
+    world = decode_las_positions(conv.data[LOCAL], scale, offset,
+                                 dtype=torch.float64)
+    return merged, conv, encode_las_positions(world, scale, offset,
+                                              rounding="round")
 
 
 # ---- timing ------------------------------------------------------------------
@@ -907,15 +980,28 @@ COMPACT_SWEEP_COLS = ((torch.uint8, 1, 0), (torch.int16, 1, 1),
                       (torch.int32, 3, 0))
 
 
-def compact_sweep_inputs(n: int, keep: str, dev, gen):
-    """Random columns of ``COMPACT_SWEEP_COLS`` (views into larger buffers
-    where the offset is odd) and the mask of kind ``keep``."""
+#: rows wider than one launch takes (``ck.LAUNCH_ROW_BYTES``), which the
+#: kernel moves as byte slices: (dtype, elements a row, element offset), a
+#: 40 000-byte row, a 40 001-byte row at an odd offset and a 73 220-byte
+#: row in 4-byte units at an odd element, beside a 12-byte column
+COMPACT_SWEEP_WIDE_COLS = ((torch.uint8, 40_000, 0), (torch.uint8, 40_001, 1),
+                           (torch.int32, 18_305, 1), (torch.int32, 3, 0))
+#: a 36 609-byte row: its second slice's launch stages two rows a part, so
+#: the spread launch's blocks of threads take parts of more than one row
+COMPACT_SWEEP_SPLIT_COLS = ((torch.uint8, 36_609, 3), (torch.int16, 5, 1))
+COMPACT_SWEEP_WIDE_NS = (1, 2047, 2049, 3000)
+
+
+def compact_sweep_inputs(n: int, keep: str, dev, gen,
+                         layout=COMPACT_SWEEP_COLS):
+    """Random columns of ``layout`` (views into larger buffers where the
+    offset is odd) and the mask of kind ``keep``."""
     cols = []
-    for dt, per, off in COMPACT_SWEEP_COLS:
-        size = torch.empty((), dtype=dt).element_size()
+    for dt_, per, off in layout:
+        size = torch.empty((), dtype=dt_).element_size()
         raw = torch.randint(0, 256, ((n * per + off) * size,),
                             dtype=torch.uint8, device=dev, generator=gen)
-        flat = raw.view(dt)[off:off + n * per]
+        flat = raw.view(dt_)[off:off + n * per]
         cols.append(flat if per == 1 else flat.view(n, per))
     idx = torch.arange(n, device=dev)
     mask = {"all": idx >= 0, "none": idx < 0, "alternate": idx % 2 == 0,
@@ -924,35 +1010,139 @@ def compact_sweep_inputs(n: int, keep: str, dev, gen):
     return cols, mask
 
 
+def check_compact(cols, mask, layout, what: str) -> None:
+    """K5 against its plain version: the count, every kept row and the
+    zero tail, byte for byte; one kernel call."""
+    before = kernels.launch_counts()["blockwise_compact"]
+    got, gcount = ck.blockwise_compact(cols, mask)
+    if kernels.launch_counts()["blockwise_compact"] != before + 1:
+        raise AssertionError(f"blockwise_compact ({what}) did not launch")
+    want, wcount = ck.blockwise_compact_plain(cols, mask)
+    torch.cuda.synchronize()
+    if int(gcount.item()) != int(wcount.item()):
+        raise AssertionError(f"blockwise_compact ({what}): "
+                             f"{int(gcount.item())} kept, plain "
+                             f"{int(wcount.item())}")
+    for (dt_, per, off), g, w in zip(layout, got, want):
+        if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+            raise AssertionError(f"blockwise_compact ({what}): the column "
+                                 f"of {per} x {dt_} at offset {off} differs")
+
+
 def phase_compact_sweep(dev: torch.device) -> None:
     """K5 against its plain version over ``COMPACT_SWEEP_NS`` x
-    ``COMPACT_SWEEP_KEEPS`` on nine columns of every row width: the count,
-    every kept row and the zero tail, byte for byte."""
+    ``COMPACT_SWEEP_KEEPS`` on nine columns of every row width, and over
+    ``COMPACT_SWEEP_WIDE_NS`` x the masks on rows wider than one launch
+    takes: the count, every kept row and the zero tail, byte for byte."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(31)
     checks = 0
-    for n in COMPACT_SWEEP_NS:
-        for keep in COMPACT_SWEEP_KEEPS:
-            cols, mask = compact_sweep_inputs(n, keep, dev, gen)
-            got, gcount = ck.blockwise_compact(cols, mask)
-            want, wcount = ck.blockwise_compact_plain(cols, mask)
-            torch.cuda.synchronize()
-            if int(gcount.item()) != int(wcount.item()):
-                raise AssertionError(
-                    f"blockwise_compact (n={n}, keep {keep}): "
-                    f"{int(gcount.item())} kept, plain {int(wcount.item())}")
-            for (dt, per, off), g, w in zip(COMPACT_SWEEP_COLS, got, want):
-                if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
-                    raise AssertionError(
-                        f"blockwise_compact (n={n}, keep {keep}): the "
-                        f"column of {per} x {dt} at offset {off} differs")
-            checks += 1
+    for layout, ns in ((COMPACT_SWEEP_COLS, COMPACT_SWEEP_NS),
+                       (COMPACT_SWEEP_WIDE_COLS, COMPACT_SWEEP_WIDE_NS),
+                       (COMPACT_SWEEP_SPLIT_COLS, COMPACT_SWEEP_WIDE_NS)):
+        for n in ns:
+            for keep in COMPACT_SWEEP_KEEPS:
+                cols, mask = compact_sweep_inputs(n, keep, dev, gen, layout)
+                check_compact(cols, mask, layout, f"n={n}, keep {keep}")
+                checks += 1
+                del cols, mask
+
+    def widths(layout):
+        return [torch.empty((), dtype=dt_).element_size() * per
+                for dt_, per, _ in layout]
+    seconds = time.perf_counter() - t0
+    # the wide-row route's time at the largest wide case, 90 % kept,
+    # beside its plain version's and its bound (bytes: the mask, every row
+    # read once, every output row written once)
+    n = max(COMPACT_SWEEP_WIDE_NS)
+    cols, mask = compact_sweep_inputs(n, "90%", dev, gen,
+                                      COMPACT_SWEEP_WIDE_COLS)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    wide_ms = gpu_ms(lambda: ck.blockwise_compact(cols, mask), flush,
+                     warmup=1, reps=3)
+    plain_ms = gpu_ms(lambda: ck.blockwise_compact_plain(cols, mask), flush,
+                      warmup=1, reps=3)
+    del cols, mask, flush
     print(json.dumps({"phase": "compact_sweep", "ns": list(COMPACT_SWEEP_NS),
                       "keeps": list(COMPACT_SWEEP_KEEPS),
-                      "row_bytes": [torch.empty((), dtype=dt).element_size()
-                                    * per for dt, per, _ in
-                                    COMPACT_SWEEP_COLS],
+                      "row_bytes": widths(COMPACT_SWEEP_COLS),
+                      "wide_ns": list(COMPACT_SWEEP_WIDE_NS),
+                      "wide_row_bytes": widths(COMPACT_SWEEP_WIDE_COLS)
+                      + widths(COMPACT_SWEEP_SPLIT_COLS),
+                      "launch_row_bytes": ck.LAUNCH_ROW_BYTES,
                       "checks": checks, "all_equal": True,
+                      "seconds": seconds,
+                      "wide_rows": n, "wide_ms": wide_ms,
+                      "wide_plain_ms": plain_ms,
+                      "wide_bound_ms": bound(n + 2.0 * n * sum(
+                          widths(COMPACT_SWEEP_WIDE_COLS)), 0)[0]}),
+          flush=True)
+
+
+WB_SWEEP_NS = (1, 2, 3, 4, 5, 255, 256, 257, 4095, 4097, 65537, 4194303,
+               4194304, 4194305)
+#: an LAS local far outside the sweep's points: after the step's rotation
+#: it is the largest world x and z and the smallest world y (its negation
+#: the opposite)
+WB_EXTREME = (3_000_000, -3_000_000, 2_500_000)
+
+
+def check_world_bounds(local, params, what: str) -> None:
+    """K1 twice (its ticket must be back at zero after each call) against
+    its plain version, ``torch.equal``."""
+    want = torch.cat(ft.fused_world_bounds_plain(local, *params))
+    for rep in range(2):
+        got = torch.cat(kernels.fused_world_bounds(local, *params))
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"fused_world_bounds ({what}, call "
+                                 f"{rep + 1}): {got} != plain {want}")
+
+
+def phase_world_bounds_sweep(dev: torch.device, affine) -> None:
+    """K1 against its plain version, bit for bit, over ``WB_SWEEP_NS``
+    points on views 0-3 rows into one buffer (12 B a row, so 1-3 rows off
+    start off a 16-byte boundary and take the kernel's scalar head), with
+    no extreme point and with ``WB_EXTREME`` (and its negation) first,
+    last and in the scalar tail; each case called twice; device and host
+    (numpy) parameters; and every point count once on a second stream."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(37)
+    pool = torch.randint(-200_000, 200_000, (max(WB_SWEEP_NS) + 3, 3),
+                         dtype=torch.int32, device=dev, generator=gen)
+    host = (SCALE, ROT, np.asarray([10.0, -5.0, 2.0], np.float32))
+    side = torch.cuda.Stream(device=dev)
+    checks = 0
+    for n in WB_SWEEP_NS:
+        for off in range(4):
+            local = pool[off:off + n]
+            head = min(n, (local.data_ptr() & 15) >> 2)
+            tail0 = head + (n - head) // 4 * 4
+            places = {"first": 0, "last": n - 1}
+            if tail0 < n:
+                places["tail"] = tail0
+            check_world_bounds(local, affine, f"n={n}, +{off} rows")
+            checks += 1
+            for where, i in places.items():
+                saved = local[i].clone()
+                for sign in (1, -1):
+                    local[i] = torch.tensor(WB_EXTREME, device=dev) * sign
+                    params = host if sign < 0 else affine
+                    check_world_bounds(local, params,
+                                       f"n={n}, +{off} rows, extreme "
+                                       f"{sign:+d} {where}")
+                    checks += 1
+                local[i] = saved
+        local = pool[:n]
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            check_world_bounds(local, affine, f"n={n}, second stream")
+        checks += 1
+    print(json.dumps({"phase": "world_bounds_sweep",
+                      "ns": list(WB_SWEEP_NS), "row_offsets": [0, 1, 2, 3],
+                      "checks": checks, "calls_per_check": 2,
+                      "workspaces": len(ft._BOUNDS_WORK),
+                      "all_equal_bitwise": True,
                       "seconds": time.perf_counter() - t0}), flush=True)
 
 
@@ -1657,9 +1847,10 @@ def call_split(fn, calls: int = 5) -> list:
 
 def phase_call_split(batch: PointBatch, affine, tiles: int, smi: str
                      ) -> None:
-    """One ``call_split`` line: the device operations of one K3 call (the
-    exact-local form on the main path's tile-sorted streams) and of one K5
-    call (the ``kernels`` row's columns and mask), at the timed shapes."""
+    """One ``call_split`` line: the device operations of one K1 call (the
+    main path's points and parameters), one K3 call (the exact-local form
+    on the main path's tile-sorted streams) and one K5 call (the
+    ``kernels`` row's columns and mask), at the timed shapes."""
     n = batch.capacity
     tile_len = n // tiles
     bmin, keys, rword, local_affine = pipeline_head(batch, affine)
@@ -1670,17 +1861,82 @@ def phase_call_split(batch: PointBatch, affine, tiles: int, smi: str
     gen = torch.Generator(device=batch.device).manual_seed(11)
     keep = torch.rand(n, device=batch.device, generator=gen) < 0.9
     ccols = [batch.data[LOCAL], batch.data[INT], batch.data[CLS]]
+    k1 = call_split(lambda: kernels.fused_world_bounds(
+        batch.data[LOCAL], *affine))
     k3 = call_split(lambda: vr.fused_sorted_voxel_reduce_rows(
         *rargs, local_affine=local_affine))
     k5 = call_split(lambda: ck.blockwise_compact(ccols, keep))
-    # K3: the status memset, the reduce, the zero tail, and the `cat` that
-    # assembles its parameter vector; K5: the memset, the write, the tail
-    for name, ops, most in (("K3", k3, 4), ("K5", k5, 3)):
+    # K1: the one launch; K3: the status memset, the reduce, the zero tail,
+    # and the `cat` that assembles its parameter vector; K5: the memset,
+    # the write, the tail
+    for name, ops, most in (("K1", k1, 1), ("K3", k3, 4), ("K5", k5, 3)):
         if sum(op["per_call"] for op in ops) > most:
             raise AssertionError(f"one {name} call issued {ops}")
     print(json.dumps({"phase": "call_split", "points": n, "tiles": tiles,
+                      "fused_world_bounds": k1,
                       "fused_sorted_voxel_reduce": k3,
                       "blockwise_compact": k5, "card": smi}), flush=True)
+
+
+def phase_path_concat_convert(smi: str) -> None:
+    """The merge of tiles before a voxel step: eight padded batches
+    (4 194 304 rows) concatenated (K5 once), converted to
+    ``CONVERT_SCHEMA`` and encoded back from f64 world positions.  Gates:
+    the count; every column of the three results ``[:count]`` equal to the
+    same calls on the CPU; the encoded locals equal to the merged ones;
+    zero rows past the count.  Then timed (CUDA events), with the device
+    busy time beside it."""
+    batches = concat_batches()
+    want_count = sum(int(b.count.item()) for b in batches)
+    kernels.reset_launch_counts()
+    merged, conv, back = path_concat_convert(batches)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if counts["blockwise_compact"] != 1:
+        raise AssertionError(f"path_concat_convert: "
+                             f"{counts['blockwise_compact']} K5 launches, "
+                             f"expected 1")
+    nc = int(merged.count.item())
+    if nc != want_count or int(conv.count.item()) != nc:
+        raise AssertionError(f"path_concat_convert: {nc} rows, the inputs "
+                             f"hold {want_count}")
+    cpu = path_concat_convert(batches_on(batches, "cpu"))
+    if int(cpu[0].count) != nc:
+        raise AssertionError("path_concat_convert: the CPU run counts "
+                             f"{int(cpu[0].count)} rows")
+    for what, got, ref in (("merged", merged, cpu[0]),
+                           ("converted", conv, cpu[1])):
+        if list(got.data) != list(ref.data):
+            raise AssertionError(f"path_concat_convert: {what} columns "
+                                 f"{list(got.data)}")
+        for name, col in got.data.items():
+            if col.dtype != ref.data[name].dtype or not torch.equal(
+                    col[:nc].cpu(), ref.data[name][:nc]):
+                raise AssertionError(f"path_concat_convert: {what} column "
+                                     f"{name} differs from the CPU run's")
+    if not torch.equal(back[:nc].cpu(), cpu[2][:nc]):
+        raise AssertionError("path_concat_convert: the encoded locals "
+                             "differ from the CPU run's")
+    if not torch.equal(back[:nc], merged.data[LOCAL][:nc]):
+        raise AssertionError("path_concat_convert: decode -> encode did not "
+                             "give the locals back")
+    if any(bool((c[nc:] != 0).any()) for c in merged.data.values()) \
+            or bool((conv.data[att.GPS_TIME.name] != 0).any()):
+        raise AssertionError("path_concat_convert: rows past the count or "
+                             "the filled column are not zero")
+    del cpu, merged, conv, back
+    ms, lo, hi = step_ms(lambda i: path_concat_convert(batches), reps=7)
+    prof = gpu_profile(lambda i: path_concat_convert(batches), steps=3)
+    print(json.dumps({
+        "phase": "path_concat_convert", "batches": CONCAT_BATCHES,
+        "capacity": CONCAT_CAPACITY * CONCAT_BATCHES, "rows": nc,
+        "launches": counts, "equal_to_cpu": True, "round_trip_exact": True,
+        "step_ms": ms, "step_ms_min": lo, "step_ms_max": hi, "repeats": 7,
+        "mrows_per_s": CONCAT_CAPACITY * CONCAT_BATCHES / ms / 1e3,
+        "device_busy_ms": prof["device_busy_ms_per_step"],
+        "hand_kernels_ms": prof["hand_kernels_ms_per_step"],
+        "device_launches": prof["device_launches_per_step"],
+        "top": prof["top"][:6], "card": smi}), flush=True)
 
 
 def phase_path_normals(pos: np.ndarray, rows: list, smi: str) -> None:
@@ -1868,6 +2124,7 @@ def main() -> int:
     affine = affine_on(dev)
     phase_voxel_reduce_sweep(dev, affine)
     phase_compact_sweep(dev)
+    phase_world_bounds_sweep(dev, affine)
     tiles = ZTILES * XTILES
     local_np, inten_np, cls_np = make_columns(N)
     batch = make_batch(local_np, inten_np, cls_np, device=dev)
@@ -1886,6 +2143,7 @@ def main() -> int:
     phase_path_normals(surface, rows, smi)
     src, tgt = phase_path_icp(dev, rows, smi)
     phase_path_registration(smi)
+    phase_path_concat_convert(smi)
     if "--profile" in sys.argv[1:]:
         def shift(i):
             return (i % 7) * 1e-6

@@ -20,7 +20,7 @@ round trips; reductions mask out the tail.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -175,6 +175,34 @@ class PointBatch:
         extra = capacity - self.capacity
         return self._replace(
             data={k: _pad_rows(v, extra) for k, v in self.data.items()})
+
+    @classmethod
+    def concatenate(cls, batches: Sequence["PointBatch"],
+                    compact: bool = True) -> "PointBatch":
+        """Concat along the point axis (capacity: the sum of the inputs').
+
+        By default the result is *compacted*: the valid rows of every input
+        move to the front, stable (original order preserved), in one
+        ``compact_columns`` call over all columns — the compaction kernel
+        on a CUDA batch — so the result holds the ``rows [0, count)``
+        invariant even when inputs carry padding; rows past the count are
+        zero.  ``compact=False`` keeps the raw layout (cheaper, but the
+        caller asserts every input is full).  The count stays on the
+        device."""
+        first = batches[0]
+        names = list(first.data)
+        data = {k: torch.cat([b.data[k] for b in batches], dim=0)
+                for k in names}
+        if compact:
+            from ..ops.compact import compact_columns
+
+            keep = torch.cat([b.valid_mask() for b in batches])
+            cols, count = compact_columns([data[k] for k in names], keep)
+            data = dict(zip(names, cols))
+        else:
+            count = torch.stack([b.count for b in batches]).sum().to(
+                torch.int32)
+        return cls(data, count, first.schema, first.meta, first.policy)
 
     # ---- host transfer --------------------------------------------------------
     def to_host(self, trim: bool = True) -> HostPointBuffer:

@@ -16,7 +16,7 @@ import torch
 
 __all__ = [
     "expand_bits_by_3", "reverse_bits", "morton_encode_u64",
-    "morton_encode_dual32", "morton_decode_u32",
+    "morton_encode_dual32", "morton_decode_u32", "morton_key_f32",
 ]
 
 
@@ -107,3 +107,14 @@ def morton_encode_dual32(ix: torch.Tensor, iy: torch.Tensor,
     hi = (_expand10_u32(ix >> 10) | (_expand10_u32(iy >> 10) << 1)
           | (_expand10_u32(iz >> 10) << 2))
     return hi, lo
+
+
+def morton_key_f32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """One float64 key, ``hi * 2**30 + lo``, from a dual-u32 Morton pair
+    (either u32 form: int64 carrier or int32 bits).  Exact while the code
+    fits f64's 53-bit mantissa; sorting by both words is the exact order.
+    Kept for host-side convenience, as in the reference."""
+    def value(w):
+        return w.to(torch.int64) & 0xFFFFFFFF
+    return value(hi).to(torch.float64) * float(1 << 30) \
+        + value(lo).to(torch.float64)

@@ -1,9 +1,11 @@
-"""Casts on device.
+"""Casts and schema conversion on device.
 
 The device counterpart of pasture's attribute conversion
-(reference: pasture-core/src/layout/conversion/attribute_conversion.rs:188-264):
-Rust-``as`` cast semantics on whole columns, plus the two forms a u32 word
-takes in this package.
+(reference: pasture-core/src/layout/conversion/attribute_conversion.rs:188-264)
+and of its ``BufferLayoutConverter`` (buffer_conversion.rs:98-450):
+Rust-``as`` cast semantics on whole columns and whole
+:class:`~pasture_tpu_torch.buffers.device.PointBatch` es, plus the two forms
+a u32 word takes in this package.
 
 u32 words (Morton keys, packed payload words, residual words):
 
@@ -20,13 +22,17 @@ edge with :func:`u32_carrier` / :func:`u32_bits`.
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import numpy as np
 import torch
 
-from ..layout.dtypes import torch_carrier
+from ..buffers.device import PointBatch
+from ..layout.dtypes import DevicePolicy, torch_carrier
+from ..layout.schema import PointSchema
 
-__all__ = ["rust_as_cast_device", "wrap_to_logical", "u32_carrier",
-           "u32_bits"]
+__all__ = ["rust_as_cast_device", "convert_batch_schema", "wrap_to_logical",
+           "u32_carrier", "u32_bits"]
 
 
 def u32_carrier(x: torch.Tensor) -> torch.Tensor:
@@ -73,8 +79,11 @@ def rust_as_cast_device(x: torch.Tensor, dst) -> torch.Tensor:
     :func:`~pasture_tpu_torch.layout.conversion.rust_as_cast`.
 
     An integer ``x`` is read as its carrier's value (a u16 column in int32
-    holds 0..65535)."""
+    holds 0..65535).  A column already of type ``dst`` is returned as it
+    is, as the reference does."""
     dst = np.dtype(dst)
+    if x.dtype == getattr(torch, dst.name, None):
+        return x
     if dst.kind == "f":
         return x.to(torch_carrier(dst))
     if x.dtype.is_floating_point:
@@ -88,3 +97,35 @@ def rust_as_cast_device(x: torch.Tensor, dst) -> torch.Tensor:
         hi = min(int(info.max), (1 << 63) - 1)
         return torch.clamp(t.to(torch.int64), lo, hi).to(torch_carrier(dst))
     return wrap_to_logical(x, dst)
+
+
+def convert_batch_schema(batch: PointBatch, to_schema: PointSchema,
+                         policy: DevicePolicy = DevicePolicy.NARROW,
+                         fill_missing_with_default: bool = False,
+                         rename: Optional[Dict[str, str]] = None
+                         ) -> PointBatch:
+    """Convert a batch to another schema on its device.
+
+    Name-matched columns cast with ``as`` semantics to the target dtype
+    under ``policy`` (:func:`rust_as_cast_device`); with
+    ``fill_missing_with_default`` absent targets are zero-filled
+    (``for_layouts_with_default`` parity); ``rename`` maps target attribute
+    name -> source column name (custom mappings).  The count stays on the
+    device."""
+    rename = rename or {}
+    data = {}
+    for member in to_schema.members:
+        src_name = rename.get(member.name, member.name)
+        if src_name in batch.data:
+            data[member.name] = rust_as_cast_device(
+                batch.data[src_name], policy.np_dtype(member.dtype))
+        elif fill_missing_with_default:
+            shape = (batch.capacity,) + member.dtype.np_shape
+            data[member.name] = torch.zeros(
+                shape, dtype=policy.torch_dtype(member.dtype),
+                device=batch.device)
+        else:
+            raise ValueError(
+                f"target attribute {member.name!r} has no source column "
+                f"(use fill_missing_with_default to zero-fill)")
+    return PointBatch(data, batch.count, to_schema, batch.meta, policy)

@@ -40,8 +40,10 @@ F = ctypes.c_float
 #: source stem -> {C function: argtypes}
 SOURCES: Dict[str, Dict[str, Sequence]] = {
     "world_bounds": {
-        # local, n, params, partials, blocks, out, stream
-        "world_bounds_launch": (P, I, P, P, I, P, P),
+        # &blocks
+        "world_bounds_max_blocks": (ctypes.POINTER(I),),
+        # local, n, scale, rot, trans, work, max_blocks, out, stream
+        "world_bounds_launch": (P, I, P, P, P, P, I, P, P),
     },
     "voxel_head": {
         # local, n, params, inv_leaf, coeffs, nearest, key, rword, stream
@@ -58,8 +60,8 @@ SOURCES: Dict[str, Dict[str, Sequence]] = {
     },
     "compact": {
         # keep, n, blocks, status, count, ranked, n_cols, src[], dst[],
-        # row_bytes[], unit[], stream
-        "compact_launch": (P, I, I, P, P, I, I, P, P, P, P, P),
+        # row_bytes[], src_pitch[], dst_pitch[], unit[], stream
+        "compact_launch": (P, I, I, P, P, I, I, P, P, P, P, P, P, P),
     },
     "voxel_reduce": {
         # form, wide, key, word, s3, s4, s5 (residual word | px, py, pz),

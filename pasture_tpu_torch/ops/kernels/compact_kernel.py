@@ -23,7 +23,12 @@ to offset + rank.  The last block writes the kept count, which stays on
 the device; a second small launch zeroes the output rows past it, so the
 outputs come from ``torch.empty``.  Columns share a launch while they fit
 (:func:`launch_groups`); further launches take the offsets the first one
-published.
+published, and spread each block's parts over several blocks of threads.
+A row wider than a launch takes (``LAUNCH_ROW_BYTES``) goes through the
+kernel as byte slices of its row (:func:`column_slices`), each slice a
+column of its own with the full row as its pitch, staged a row a slot so
+that its 16-byte copies still line up; the first launch of such a call
+only ranks, so that every slice's launch is a spread one.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from . import _build
 
 __all__ = ["blockwise_compact", "blockwise_compact_plain", "LAUNCHES",
            "ROWS_PER_BLOCK", "MAX_COLS_PER_LAUNCH", "LAUNCH_ROW_BYTES",
-           "launch_groups"]
+           "SLICE_BYTES", "launch_groups", "column_slices", "staged_bytes"]
 
 #: launches of the kernel: one per call that compacts on the GPU (its write
 #: launches and zero-tail launches together)
@@ -46,6 +51,32 @@ LAUNCHES = {"blockwise_compact": 0}
 ROWS_PER_BLOCK = 2048       # CP_ROWS of csrc/compact.cu
 MAX_COLS_PER_LAUNCH = 8     # CP_MAX_COLS
 LAUNCH_ROW_BYTES = 36864 - 32 * MAX_COLS_PER_LAUNCH   # CP_SLAB less padding
+#: widest byte slice of a wider row: a multiple of 16 whose slot
+#: (:func:`staged_bytes`) fits a launch
+SLICE_BYTES = LAUNCH_ROW_BYTES - 16
+
+
+def staged_bytes(row_bytes: int, pitch: int) -> int:
+    """Shared-memory bytes a row of a column takes in a launch: the row
+    itself where rows are contiguous (``pitch == row_bytes``), else a
+    16-aligned slot that holds the row at its own offset mod 16
+    (``cp_slot_bytes`` of ``csrc/compact.cu``)."""
+    return row_bytes if pitch == row_bytes else (row_bytes + 30) // 16 * 16
+
+
+def column_slices(row_bytes: int) -> List[Tuple[int, int]]:
+    """``(byte offset, bytes)`` of the slices a row of ``row_bytes`` goes
+    through the kernel in: the whole row where it fits a launch, else
+    ``ceil(row_bytes / SLICE_BYTES)`` slices of an even share rounded up to
+    16 bytes (so no slice is much narrower than half a launch), the last
+    one narrower."""
+    if row_bytes <= LAUNCH_ROW_BYTES:
+        return [(0, row_bytes)]
+    k = -(-row_bytes // SLICE_BYTES)
+    width = (-(-row_bytes // k) + 15) // 16 * 16
+    out = [(i * width, min(width, row_bytes - i * width)) for i in range(k)]
+    assert out[-1][1] > 0 and all(w <= SLICE_BYTES for _, w in out)
+    return out
 
 
 def launch_groups(row_bytes: Sequence[int]) -> List[List[int]]:
@@ -98,10 +129,12 @@ def blockwise_compact_plain(cols: Sequence[torch.Tensor], keep: torch.Tensor
     return out, count
 
 
-def _unit_of(row_bytes: int, *ptrs: int) -> int:
-    """Widest of 8, 4, 2, 1 bytes that divides the row and every address."""
+def _unit_of(row_bytes: int, *ptrs_and_pitches: int) -> int:
+    """Widest of 8, 4, 2, 1 bytes that divides the row and every address
+    and pitch."""
     for unit in (8, 4, 2):
-        if row_bytes % unit == 0 and all(p % unit == 0 for p in ptrs):
+        if row_bytes % unit == 0 and all(p % unit == 0
+                                         for p in ptrs_and_pitches):
             return unit
     return 1
 
@@ -113,7 +146,8 @@ def blockwise_compact(cols: Sequence[torch.Tensor], keep: torch.Tensor
     (compacted columns, kept count as a 0-d int32 tensor on the columns'
     device — no host read).  Rows at or past the count are zero.
 
-    On CUDA tensors the kernel runs; on CPU tensors the plain version."""
+    On CUDA tensors the kernel runs, for rows of any width; on CPU
+    tensors the plain version."""
     if not keep.is_cuda:
         return blockwise_compact_plain(cols, keep)
     n = _check_args(cols, keep)
@@ -127,8 +161,19 @@ def blockwise_compact(cols: Sequence[torch.Tensor], keep: torch.Tensor
     live = [(s, o) for s, o in zip(srcs, outs) if s.numel()]
     if not live:                 # no column has a byte to move
         return outs, keep.sum().to(torch.int32)
-    widths = [s.numel() // n * s.element_size() for s, _ in live]
-    groups = launch_groups(widths)
+    # (source, destination, row bytes, pitch) of every column the kernel
+    # moves: a row too wide for a launch as its byte slices
+    parts = []
+    for s, o in live:
+        width = s.numel() // n * s.element_size()
+        parts += [(s.data_ptr() + at, o.data_ptr() + at, nb, width)
+                  for at, nb in column_slices(width)]
+    groups = launch_groups([staged_bytes(nb, pitch)
+                            for _, _, nb, pitch in parts])
+    if any(nb != pitch for _, _, nb, pitch in parts):
+        # a first launch that only ranks: every launch that moves a slice
+        # then spreads its blocks' parts over the card
+        groups.insert(0, [])
     blocks = (n + ROWS_PER_BLOCK - 1) // ROWS_PER_BLOCK
     # the ticket and the blocks' status words: the call's only memset
     status = torch.zeros(blocks + 1, dtype=torch.int64, device=dev)
@@ -137,18 +182,18 @@ def blockwise_compact(cols: Sequence[torch.Tensor], keep: torch.Tensor
     with torch.cuda.device(dev):
         for g, group in enumerate(groups):
             k = len(group)
-            src = (ctypes.c_void_p * k)(*[live[i][0].data_ptr()
-                                          for i in group])
-            dst = (ctypes.c_void_p * k)(*[live[i][1].data_ptr()
-                                          for i in group])
-            row_bytes = (ctypes.c_int * k)(*[widths[i] for i in group])
-            unit = (ctypes.c_int * k)(*[
-                _unit_of(widths[i], live[i][0].data_ptr(),
-                         live[i][1].data_ptr()) for i in group])
+            chosen = [parts[i] for i in group]
+            src = (ctypes.c_void_p * k)(*[c[0] for c in chosen])
+            dst = (ctypes.c_void_p * k)(*[c[1] for c in chosen])
+            row_bytes = (ctypes.c_int * k)(*[c[2] for c in chosen])
+            pitch = (ctypes.c_int * k)(*[c[3] for c in chosen])
+            unit = (ctypes.c_int * k)(*[_unit_of(nb, p, s, d)
+                                        for s, d, nb, p in chosen])
+            # the sources and destinations share their pitch
             code = lib.compact_launch(
                 keep8.data_ptr(), n, blocks, status.data_ptr(),
-                total.data_ptr(), int(g > 0), k, src, dst, row_bytes, unit,
-                _build.stream())
+                total.data_ptr(), int(g > 0), k, src, dst, row_bytes, pitch,
+                pitch, unit, _build.stream())
             _build.check(code, "blockwise_compact")
     LAUNCHES["blockwise_compact"] += 1
     return outs, total

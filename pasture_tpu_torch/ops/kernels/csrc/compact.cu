@@ -18,6 +18,16 @@
 // others; those launches take the offsets from the inclusive prefixes the
 // first one published, so they neither look back nor race.
 //
+// A column may be a byte slice of wider rows: its rows are row_bytes wide
+// and src_pitch (dst_pitch) bytes apart.  Such a column is staged a row at
+// a time, each row in a slot of its own at its own offset mod 16, so the
+// 16-byte copies still line up; a row wider than a launch takes is cut
+// into such slices by the caller.  A later launch needs no look-back, so
+// it spreads each block's parts over gridDim.y CTAs (part j of a block to
+// CTA j mod gridDim.y): wide rows come a few a part, and a call with
+// few blocks would otherwise walk them on a few SMs.  The caller then
+// makes the first launch a rank-only one, with no columns.
+//
 // Bound: bytes (the mask and every row read once, every output row,
 // kept or zeroed, written once).
 #include <cuda_pipeline.h>
@@ -37,10 +47,21 @@ struct CpCols {
     const unsigned char* src[CP_MAX_COLS];
     unsigned char* dst[CP_MAX_COLS];
     int row_bytes[CP_MAX_COLS];
+    int src_pitch[CP_MAX_COLS];  // bytes from a row to the next
+    int dst_pitch[CP_MAX_COLS];
+    int slot[CP_MAX_COLS];       // staged bytes a row of a column whose
+                                 // source has a pitch; 0: rows staged whole
     int unit[CP_MAX_COLS];       // bytes moved at a time: 1, 2, 4 or 8,
-                                 // dividing the row and both addresses
+                                 // dividing the row, both pitches and both
+                                 // addresses
     int smem_at[CP_MAX_COLS];    // the column's staging area, 16-aligned
 };
+
+// staged bytes a row of a column with a source pitch: the row at its own
+// offset mod 16 in a 16-aligned slot
+__host__ __device__ __forceinline__ int cp_slot_bytes(int row_bytes) {
+    return (row_bytes + 30) & ~15;
+}
 
 // bits of the four bytes of w that are not zero
 __device__ __forceinline__ uint32_t cp_flags4(uint32_t w) {
@@ -72,41 +93,71 @@ __device__ __forceinline__ int cp_rank(const uint32_t* gmask,
 }
 
 // Write the kept rows of ranks [k0, k1) (block rows from r0 on, the row of
-// block row r0 at in) to their places (rank 0 at out), in units of U, upr
-// units a row: consecutive threads write consecutive units, each reading
-// its row through the inverse of the ranks.
+// block row r0 at in) to their places (rank 0 at out, dpu units from a row
+// to the next), in units of U, upr units a row: consecutive threads write
+// consecutive units, each reading its row through the inverse of the
+// ranks.
 template <typename U>
 __device__ __forceinline__ void cp_gather(const unsigned char* in,
                                           unsigned char* __restrict__ out,
                                           int r0, int k0, int k1, int upr,
-                                          const uint16_t* row_of, int tid) {
+                                          int dpu, const uint16_t* row_of,
+                                          int tid) {
     const U* src = (const U*)in;
     U* __restrict__ dst = (U*)out;
-    if (upr == 1) {
+    if (upr == 1 && dpu == 1) {
         for (int w = k0 + tid; w < k1; w += CP_THREADS)
             dst[w] = src[row_of[w] - r0];
         return;
     }
     for (int w = k0 * upr + tid; w < k1 * upr; w += CP_THREADS) {
-        const int q = w / upr;
-        dst[w] = src[(row_of[q] - r0) * upr + (w - q * upr)];
+        const int q = w / upr, e = w - q * upr;
+        dst[(long long)q * dpu + e] = src[(row_of[q] - r0) * upr + e];
     }
 }
 
-// Issue the copies of block rows [r0, r0 + nr) of every column.
+// The same for a column staged a row a slot (slot bytes from one to the
+// next, each row at the offset mod 16 of its source address; blk: the
+// block's first source row).
+template <typename U>
+__device__ __forceinline__ void cp_gather_slots(
+        const unsigned char* in, const unsigned char* blk, int src_pitch,
+        int slot, unsigned char* __restrict__ out, int r0, int k0, int k1,
+        int upr, int dpu, const uint16_t* row_of, int tid) {
+    U* __restrict__ dst = (U*)out;
+    for (int w = k0 * upr + tid; w < k1 * upr; w += CP_THREADS) {
+        const int q = w / upr, e = w - q * upr, r = row_of[q];
+        const U* row = (const U*)(
+            in + (r - r0) * slot
+            + ((uintptr_t)(blk + (long long)r * src_pitch) & 15));
+        dst[(long long)q * dpu + e] = row[e];
+    }
+}
+
+// Issue the copies of block rows [r0, r0 + nr) of every column: a
+// contiguous column's as one byte range, a pitched column's a row a slot.
 __device__ __forceinline__ void cp_stage(const CpCols& cols,
                                          unsigned char* sm, long long row0,
                                          int r0, int nr, int tid) {
-    for (int c = 0; c < cols.n_cols; ++c)
-        cp_load(sm + cols.smem_at[c],
-                cols.src[c] + (row0 + r0) * cols.row_bytes[c],
-                nr * cols.row_bytes[c], tid);
+    for (int c = 0; c < cols.n_cols; ++c) {
+        const unsigned char* g =
+            cols.src[c] + (row0 + r0) * cols.src_pitch[c];
+        if (cols.slot[c] == 0) {
+            cp_load(sm + cols.smem_at[c], g, nr * cols.row_bytes[c], tid);
+            continue;
+        }
+        for (int i = 0; i < nr; ++i)
+            cp_load(sm + cols.smem_at[c] + i * cols.slot[c],
+                    g + (long long)i * cols.src_pitch[c], cols.row_bytes[c],
+                    tid);
+    }
     __pipeline_commit();
 }
 
 // first launch: ranked == 0 (ticket and look-back); later launches of the
 // same call: ranked == 1 (block b's offset is the inclusive prefix block
-// b - 1 published).
+// b - 1 published), block blockIdx.x's parts blockIdx.y, blockIdx.y +
+// gridDim.y, ...
 __global__ void __launch_bounds__(CP_THREADS)
 compact_write(const uint8_t* __restrict__ keep, int n, int blocks,
               CpCols cols, int ranked,
@@ -127,9 +178,13 @@ compact_write(const uint8_t* __restrict__ keep, int n, int blocks,
     const long long row0 = (long long)b * CP_ROWS;
     const int rows = n - row0 < CP_ROWS ? (int)(n - row0) : CP_ROWS;
     const int part = cols.part_rows;
+    const int first = (int)blockIdx.y * part;    // this CTA's first part
+    const int step = (int)gridDim.y * part;
+    if (first >= rows) return;                   // a later launch's spare CTA
 
     // the first part's copies go out before the ranking
-    cp_stage(cols, cp_sm, row0, 0, rows < part ? rows : part, tid);
+    cp_stage(cols, cp_sm, row0, first,
+             rows - first < part ? rows - first : part, tid);
 
     // the mask, once: group g = tid < CP_GROUPS holds rows 16g .. 16g + 15
     uint32_t m = 0;
@@ -178,7 +233,7 @@ compact_write(const uint8_t* __restrict__ keep, int n, int blocks,
         if (lane == 0) s_excl = excl;
     }
 
-    for (int r0 = 0; r0 < rows; r0 += part) {
+    for (int r0 = first; r0 < rows; r0 += step) {
         const int nr = rows - r0 < part ? rows - r0 : part;
         const int k0 = cp_rank(gmask, grank, r0);
         const int k1 =
@@ -186,46 +241,75 @@ compact_write(const uint8_t* __restrict__ keep, int n, int blocks,
         __pipeline_wait_prior(0);
         __syncthreads();
         for (int c = 0; c < cols.n_cols; ++c) {
-            const int rb = cols.row_bytes[c];
+            const int rb = cols.row_bytes[c], sp = cols.src_pitch[c];
+            const unsigned char* blk = cols.src[c] + row0 * sp;
+            unsigned char* out =
+                cols.dst[c] + (long long)s_excl * cols.dst_pitch[c];
+            const int u = cols.unit[c], upr = rb / u,
+                      dpu = cols.dst_pitch[c] / u;
+            if (cols.slot[c]) {
+                const unsigned char* in = cp_sm + cols.smem_at[c];
+                const int sl = cols.slot[c];
+                switch (u) {
+                case 8: cp_gather_slots<uint64_t>(in, blk, sp, sl, out, r0,
+                                                  k0, k1, upr, dpu, row_of,
+                                                  tid);
+                        break;
+                case 4: cp_gather_slots<uint32_t>(in, blk, sp, sl, out, r0,
+                                                  k0, k1, upr, dpu, row_of,
+                                                  tid);
+                        break;
+                case 2: cp_gather_slots<uint16_t>(in, blk, sp, sl, out, r0,
+                                                  k0, k1, upr, dpu, row_of,
+                                                  tid);
+                        break;
+                default: cp_gather_slots<uint8_t>(in, blk, sp, sl, out, r0,
+                                                  k0, k1, upr, dpu, row_of,
+                                                  tid);
+                }
+                continue;
+            }
             const unsigned char* in = cp_sm + cols.smem_at[c]
-                + ((uintptr_t)(cols.src[c] + (row0 + r0) * rb) & 15);
-            unsigned char* out = cols.dst[c] + (long long)s_excl * rb;
-            const int upr = rb / cols.unit[c];
-            switch (cols.unit[c]) {
-            case 8: cp_gather<uint64_t>(in, out, r0, k0, k1, upr, row_of,
-                                        tid);
+                + ((uintptr_t)(blk + (long long)r0 * rb) & 15);
+            switch (u) {
+            case 8: cp_gather<uint64_t>(in, out, r0, k0, k1, upr, dpu,
+                                        row_of, tid);
                     break;
-            case 4: cp_gather<uint32_t>(in, out, r0, k0, k1, upr, row_of,
-                                        tid);
+            case 4: cp_gather<uint32_t>(in, out, r0, k0, k1, upr, dpu,
+                                        row_of, tid);
                     break;
-            case 2: cp_gather<uint16_t>(in, out, r0, k0, k1, upr, row_of,
-                                        tid);
+            case 2: cp_gather<uint16_t>(in, out, r0, k0, k1, upr, dpu,
+                                        row_of, tid);
                     break;
-            default: cp_gather<uint8_t>(in, out, r0, k0, k1, upr, row_of,
-                                        tid);
+            default: cp_gather<uint8_t>(in, out, r0, k0, k1, upr, dpu,
+                                        row_of, tid);
             }
         }
-        if (r0 + part < rows) {
+        if (r0 + step < rows) {
             __syncthreads();      // every thread is done with this part
-            cp_stage(cols, cp_sm, row0, r0 + part,
-                     rows - r0 - part < part ? rows - r0 - part : part, tid);
+            cp_stage(cols, cp_sm, row0, r0 + step,
+                     rows - r0 - step < part ? rows - r0 - step : part, tid);
         }
     }
 }
 
 // blocks must be ceil(n / CP_ROWS): the caller sized status to blocks + 1
 // zeroed int64 words.  src, dst: host arrays of n_cols device pointers;
-// row_bytes, unit: host arrays of n_cols ints, the row bytes summing to at
+// row_bytes, src_pitch, dst_pitch, unit: host arrays of n_cols ints, each
+// pitch at least the row; the staged bytes of a row (row_bytes for a
+// contiguous source, cp_slot_bytes for one with a pitch) summing to at
 // most CP_SLAB - 32 * CP_MAX_COLS.  count: an int32 the first launch of a
-// call (ranked == 0) sets to the kept count.  Launches the write, then the
-// zero tail of these columns.
+// call (ranked == 0) sets to the kept count; that launch may have no
+// columns (n_cols == 0: it only ranks, publishes and counts).  Launches the
+// write, then the zero tail of these columns.
 extern "C" int compact_launch(const void* keep, int n, int blocks,
                               void* status, void* count, int ranked,
                               int n_cols, const void* const* src,
                               void* const* dst, const int* row_bytes,
+                              const int* src_pitch, const int* dst_pitch,
                               const int* unit, void* stream) {
-    if (n <= 0 || blocks != (n + CP_ROWS - 1) / CP_ROWS || n_cols < 1
-        || n_cols > CP_MAX_COLS)
+    if (n <= 0 || blocks != (n + CP_ROWS - 1) / CP_ROWS || n_cols < 0
+        || n_cols > CP_MAX_COLS || (n_cols == 0 && ranked))
         return (int)cudaErrorInvalidValue;
     CpCols cols;
     PtTail tail;
@@ -236,29 +320,57 @@ extern "C" int compact_launch(const void* keep, int n, int blocks,
         cols.src[c] = on ? (const unsigned char*)src[c] : nullptr;
         cols.dst[c] = on ? (unsigned char*)dst[c] : nullptr;
         cols.row_bytes[c] = on ? row_bytes[c] : 0;
+        cols.src_pitch[c] = on ? src_pitch[c] : 0;
+        cols.dst_pitch[c] = on ? dst_pitch[c] : 0;
         cols.unit[c] = on ? unit[c] : 1;
         if (on && (row_bytes[c] < 1 || (unit[c] != 1 && unit[c] != 2
                                         && unit[c] != 4 && unit[c] != 8)
-                   || row_bytes[c] % unit[c] != 0))
+                   || row_bytes[c] % unit[c] != 0
+                   || src_pitch[c] < row_bytes[c]
+                   || dst_pitch[c] < row_bytes[c]
+                   || src_pitch[c] % unit[c] != 0
+                   || dst_pitch[c] % unit[c] != 0))
             return (int)cudaErrorInvalidValue;
-        bytes += cols.row_bytes[c];
+        const bool pitched = on && src_pitch[c] != row_bytes[c];
+        cols.slot[c] = pitched ? cp_slot_bytes(row_bytes[c]) : 0;
+        bytes += pitched ? cols.slot[c] : cols.row_bytes[c];
         tail.ptr[c] = (char*)cols.dst[c];
         tail.row_bytes[c] = cols.row_bytes[c];
+        tail.pitch[c] = cols.dst_pitch[c];
     }
     if (bytes > CP_SLAB - 32 * CP_MAX_COLS) return (int)cudaErrorInvalidValue;
-    const long long fit = (CP_SLAB - 32 * CP_MAX_COLS) / bytes;
+    const long long fit =
+        bytes ? (CP_SLAB - 32 * CP_MAX_COLS) / bytes : CP_ROWS;
     cols.part_rows = fit < CP_ROWS ? (int)fit : CP_ROWS;
     int smem = 0;
     for (int c = 0; c < CP_MAX_COLS; ++c) {
         cols.smem_at[c] = smem;
         if (c < n_cols)
-            smem += (cols.part_rows * cols.row_bytes[c] + 16 + 15) & ~15;
+            smem += cols.slot[c]
+                ? cols.part_rows * cols.slot[c]
+                : (cols.part_rows * cols.row_bytes[c] + 16 + 15) & ~15;
     }
-    compact_write<<<blocks, CP_THREADS, smem, (cudaStream_t)stream>>>(
+    // a later launch: enough CTAs for two a streaming multiprocessor, as
+    // far as the blocks have parts
+    int splits = 1;
+    if (ranked) {
+        int dev = 0, sms = 0;
+        cudaError_t e = cudaGetDevice(&dev);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev);
+        if (e != cudaSuccess) return (int)e;
+        const int rows = n < CP_ROWS ? n : CP_ROWS;
+        const int parts = (rows + cols.part_rows - 1) / cols.part_rows;
+        const int want = (2 * sms + blocks - 1) / blocks;
+        splits = want < parts ? want : parts;
+    }
+    compact_write<<<dim3(blocks, splits), CP_THREADS, smem,
+                    (cudaStream_t)stream>>>(
         (const uint8_t*)keep, n, blocks, cols, ranked,
         (unsigned long long*)status, (int*)count);
     cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess || n_cols == 0) return (int)e;
     return (int)pt_launch_zero_tail(tail, n_cols, (const int*)count, n,
                                     (cudaStream_t)stream);
 }

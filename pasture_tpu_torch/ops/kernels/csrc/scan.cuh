@@ -92,27 +92,20 @@ __device__ __forceinline__ int pt_publish_and_look_back(
 #define PT_TAIL_THREADS 256
 #define PT_TAIL_BLOCKS 264      // two a streaming multiprocessor
 
+// A buffer's rows are row_bytes wide, pitch bytes apart (pitch ==
+// row_bytes: the rows are contiguous).
 struct PtTail {
     char* ptr[PT_TAIL_MAX];
     long long row_bytes[PT_TAIL_MAX];
+    long long pitch[PT_TAIL_MAX];
 };
 
-// Zero rows [*count, n) of buffer blockIdx.y: 16-byte stores between the
-// unaligned head and tail bytes.
-__global__ void __launch_bounds__(PT_TAIL_THREADS)
-pt_zero_tail(PtTail t, const int* __restrict__ count, long long n) {
-    char* __restrict__ p = nullptr;
-    long long rb = 0;
-#pragma unroll
-    for (int b = 0; b < PT_TAIL_MAX; ++b)   // no local copy of the table
-        if (b == (int)blockIdx.y) {
-            p = t.ptr[b];
-            rb = t.row_bytes[b];
-        }
-    const long long lo = (long long)*count * rb, hi = n * rb;
-    if (lo >= hi) return;
-    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long stride = (long long)gridDim.x * blockDim.x;
+// Zero bytes [lo, hi) of p by threads tid of stride: 16-byte stores between
+// the unaligned head and tail bytes.
+__device__ __forceinline__ void pt_zero_bytes(char* __restrict__ p,
+                                              long long lo, long long hi,
+                                              long long tid,
+                                              long long stride) {
     const long long lead = (16 - ((uintptr_t)(p + lo) & 15)) & 15;
     const long long head = lead < hi - lo ? lead : hi - lo;
     if (tid < head) p[lo + tid] = 0;
@@ -122,6 +115,31 @@ pt_zero_tail(PtTail t, const int* __restrict__ count, long long n) {
     for (long long i = tid; i < nvec; i += stride) v[i] = make_uint4(0, 0, 0, 0);
     const long long tlo = vlo + (nvec << 4);
     if (tid < hi - tlo) p[tlo + tid] = 0;
+}
+
+// Zero rows [*count, n) of buffer blockIdx.y: contiguous rows as one byte
+// range over the whole grid, rows with a pitch one row a block at a time.
+__global__ void __launch_bounds__(PT_TAIL_THREADS)
+pt_zero_tail(PtTail t, const int* __restrict__ count, long long n) {
+    char* __restrict__ p = nullptr;
+    long long rb = 0, pitch = 0;
+#pragma unroll
+    for (int b = 0; b < PT_TAIL_MAX; ++b)   // no local copy of the table
+        if (b == (int)blockIdx.y) {
+            p = t.ptr[b];
+            rb = t.row_bytes[b];
+            pitch = t.pitch[b];
+        }
+    if (pitch == rb) {
+        const long long lo = (long long)*count * rb, hi = n * rb;
+        if (lo < hi)
+            pt_zero_bytes(p, lo, hi,
+                          (long long)blockIdx.x * blockDim.x + threadIdx.x,
+                          (long long)gridDim.x * blockDim.x);
+        return;
+    }
+    for (long long r = (long long)*count + blockIdx.x; r < n; r += gridDim.x)
+        pt_zero_bytes(p + r * pitch, 0, rb, threadIdx.x, blockDim.x);
 }
 
 // Launch pt_zero_tail over n_bufs (1..PT_TAIL_MAX) buffers of n rows.

@@ -334,9 +334,9 @@ static int vr_launch(const void* key, const void* word, const void* s3,
     if (e != cudaSuccess) return (int)e;
     PtTail t;
     t.ptr[0] = (char*)pos;
-    t.row_bytes[0] = 3 * sizeof(float);
+    t.row_bytes[0] = t.pitch[0] = 3 * sizeof(float);
     t.ptr[1] = (char*)out_word;
-    t.row_bytes[1] = sizeof(uint32_t);
+    t.row_bytes[1] = t.pitch[1] = sizeof(uint32_t);
     return (int)pt_launch_zero_tail(t, 2, (const int*)count,
                                     (long long)sh.tiles * sh.tile_len, stream);
 }

@@ -29,6 +29,7 @@ residual window must fit 10 bits, hence
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -77,31 +78,67 @@ def _world(local, scale, rot, trans):
 # ---- K1: world bounds -----------------------------------------------------
 # Replaces: pasture_tpu/ops/kernels/fused_transform.py fused_world_bounds
 # (_bounds_kernel).  Bound on the H100: bytes — 12 B read per point, nothing
-# written but 24 B; a handful of f32 operations per point.  Design: a
-# grid-stride loop keeps per-thread minima/maxima in registers, a warp
-# shuffle and a shared-memory step reduce them to one (6,) partial per
-# block, and a second, one-block launch folds the partials — world
-# coordinates never reach device memory and no float atomics are needed.
+# written but 24 B; a handful of f32 operations per point.  Design
+# (csrc/world_bounds.cu): one launch and no parameter vector — the kernel
+# takes the three parameter tensors as pointers.  Each thread reads four
+# points as three 16-byte loads, two such groups in flight, and keeps
+# minima/maxima in registers; each block reduces them to one (6,) partial,
+# and the block that draws the last ticket of a counter folds the
+# partials.  World coordinates never reach device memory and no float
+# atomics are needed.  The counter and the partials are a workspace kept
+# per (device, stream) and zeroed once: the folding block sets the counter
+# back to zero, so a call issues no memset, and calls on two streams never
+# share a counter.
+
+def _bounds_params(scale, rotation, translation, device
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(scale (3,), rotation (9,) row-major, translation (3,))`` as
+    contiguous f32 tensors on ``device``: no copy for tensors that already
+    are; host (numpy or CPU) values are copied to the device."""
+    out = []
+    for x, k, name in ((scale, 3, "scale"), (rotation, 9, "rotation"),
+                       (translation, 3, "translation")):
+        t = _f32(x, device)
+        if t.numel() != k:
+            raise ValueError(f"{name} needs {k} values, got shape "
+                             f"{tuple(t.shape)}")
+        out.append(t.reshape(k).contiguous())
+    return out[0], out[1], out[2]
+
 
 def fused_world_bounds_plain(local, scale, rotation, translation
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fused_world_bounds`."""
-    dev = local.device
-    t = _world(local, _f32(scale, dev).reshape(3),
-               _f32(rotation, dev).reshape(3, 3),
-               _f32(translation, dev).reshape(3))
-    return (torch.stack([c.min() for c in t]),
-            torch.stack([c.max() for c in t]))
+    s, r, t = _bounds_params(scale, rotation, translation, local.device)
+    w = _world(local, s, r.reshape(3, 3), t)
+    return (torch.stack([c.min() for c in w]),
+            torch.stack([c.max() for c in w]))
 
 
-_BOUNDS_BLOCKS = 1056   # 8 blocks of 256 threads for each of 132 SMs
+#: (device index, stream) -> (workspace: a zeroed ticket and room for the
+#: partials, the most blocks a call launches on that device)
+_BOUNDS_WORK = {}
+
+
+def _bounds_workspace(device: torch.device, lib) -> Tuple[torch.Tensor, int]:
+    key = (device.index, _build.stream())
+    work = _BOUNDS_WORK.get(key)
+    if work is None:
+        blocks = ctypes.c_int(0)
+        _build.check(lib.world_bounds_max_blocks(ctypes.byref(blocks)),
+                     "fused_world_bounds")
+        work = _BOUNDS_WORK.setdefault(key, (torch.zeros(
+            4 + 6 * blocks.value, dtype=torch.float32, device=device),
+            blocks.value))
+    return work
 
 
 def fused_world_bounds(local: torch.Tensor, scale, rotation, translation
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(min, max) world AABB of ``rot @ (local * scale) + trans`` over an
     (N, 3) int32 tensor in one pass (no world-position materialisation).
-    Any N >= 1."""
+    Any N >= 1.  The parameters may be tensors on the device (no copy, no
+    host read) or host values (copied to the device)."""
     _check_local(local)
     if local.shape[0] == 0:
         raise ValueError("fused_world_bounds needs at least one point")
@@ -109,18 +146,15 @@ def fused_world_bounds(local: torch.Tensor, scale, rotation, translation
         return fused_world_bounds_plain(local, scale, rotation, translation)
     dev = local.device
     local = local.contiguous()
-    params = torch.cat([_f32(scale, dev).reshape(3),
-                        _f32(rotation, dev).reshape(9),
-                        _f32(translation, dev).reshape(3)]).contiguous()
-    n = local.shape[0]
-    blocks = min(_BOUNDS_BLOCKS, (n + 255) // 256)
-    partials = torch.empty((blocks, 6), dtype=torch.float32, device=dev)
+    s, r, t = _bounds_params(scale, rotation, translation, dev)
     out = torch.empty(6, dtype=torch.float32, device=dev)
     lib = _build.library("world_bounds")
     with torch.cuda.device(dev):
+        work, blocks = _bounds_workspace(dev, lib)
         code = lib.world_bounds_launch(
-            local.data_ptr(), n, params.data_ptr(), partials.data_ptr(),
-            blocks, out.data_ptr(), _build.stream())
+            local.data_ptr(), local.shape[0], s.data_ptr(), r.data_ptr(),
+            t.data_ptr(), work.data_ptr(), blocks, out.data_ptr(),
+            _build.stream())
     _build.check(code, "fused_world_bounds")
     LAUNCHES["fused_world_bounds"] += 1
     return out[0:3], out[3:6]

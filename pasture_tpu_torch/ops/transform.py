@@ -1,7 +1,8 @@
 """Position transforms on device.
 
-The device analog of pasture's LAS position decode
-(reference: pasture-io/src/las/raw_readers.rs:39-58) and of the per-point
+The device analog of pasture's LAS position decode/encode
+(reference: pasture-io/src/las/raw_readers.rs:39-58 and
+write_helpers.rs:10-24) and of the per-point
 coordinate transforms that the reference runs through PROJ or nalgebra.
 All ops are elementwise over SoA columns.
 
@@ -20,7 +21,10 @@ from typing import Optional
 
 import torch
 
-__all__ = ["decode_las_positions", "affine_transform", "transform_positions"]
+__all__ = ["decode_las_positions", "encode_las_positions",
+           "affine_transform", "transform_positions"]
+
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 
 
 def decode_las_positions(local: torch.Tensor, scale: torch.Tensor,
@@ -39,6 +43,33 @@ def decode_las_positions(local: torch.Tensor, scale: torch.Tensor,
         return rel * scale.to(dtype)[None, :]
     return local.to(dtype) * scale.to(dtype)[None, :] \
         + offset.to(dtype)[None, :]
+
+
+def encode_las_positions(world: torch.Tensor, scale: torch.Tensor,
+                         offset: Optional[torch.Tensor] = None,
+                         anchor: Optional[torch.Tensor] = None,
+                         rounding: str = "trunc") -> torch.Tensor:
+    """World -> i32 local coords, in ``world``'s float dtype.
+    ``rounding="trunc"`` truncates toward zero (write_helpers.rs:10-24
+    ``as i64`` parity, minus the range panic — out-of-range values
+    saturate); ``"round"`` rounds half to even, which makes decode ->
+    encode an exact bit round trip.  With ``anchor`` (i32), the result is
+    relative to it and the anchor is added back (wrapping)."""
+    if rounding not in ("trunc", "round"):
+        raise ValueError(f"rounding must be 'trunc' or 'round', got "
+                         f"{rounding!r}")
+    w = world
+    if offset is not None:
+        w = w - offset[None, :].to(w.dtype)
+    q = w / scale[None, :].to(w.dtype)
+    q = torch.trunc(q) if rounding == "trunc" else torch.round(q)
+    # clipped in the float dtype, where the i32 max may round up (to 2**31
+    # in f32); the integer clip then saturates as the reference's cast does
+    q = torch.clamp(q, float(_I32_MIN), float(_I32_MAX)).to(torch.int64)
+    q = torch.clamp(q, _I32_MIN, _I32_MAX).to(torch.int32)
+    if anchor is not None:
+        q = q + anchor[None, :].to(torch.int32)
+    return q
 
 
 def affine_transform(positions: torch.Tensor, matrix: torch.Tensor,

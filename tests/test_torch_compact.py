@@ -170,3 +170,69 @@ def test_compact_batch_drops_padding_whatever_the_mask_says(rng):
     assert int(out.count) == len(want)
     np.testing.assert_array_equal(out.data["Intensity"].numpy()[:len(want)],
                                   cols["Intensity"][:100][want])
+
+
+def test_compact_wide_rows_match_jax(rng):
+    """A 40 000-byte row (wider than one launch of the kernel takes) and a
+    10 001-byte row at an odd byte offset: the CPU compaction equals the
+    JAX package's, which compacts 1-D columns — so it compacts the row
+    ids, and the wide rows are taken by those ids."""
+    n = 300
+    keep = rng.random(n) < 0.6
+    wide = rng.integers(0, 256, (n, 40_000), dtype=np.uint8)
+    raw = rng.integers(0, 256, n * 10_001 + 1, dtype=np.uint8)
+    odd = raw[1:].reshape(n, 10_001)
+    got, count = compact_columns([T(wide), T(odd)], T(keep))
+    (ids,), wc = j_compact_columns([jnp.arange(n, dtype=jnp.int32)],
+                                   jnp.asarray(keep))
+    k = int(keep.sum())
+    assert int(count) == int(wc) == k
+    ids = np.asarray(ids)[:k]
+    for g, col in zip(got, (wide, odd)):
+        np.testing.assert_array_equal(g.numpy()[:k], col[ids])
+        assert not g.numpy()[k:].any()
+
+
+@pytest.mark.parametrize("row_bytes", [1, 36_592, ck.LAUNCH_ROW_BYTES,
+                                       ck.LAUNCH_ROW_BYTES + 1, 40_000,
+                                       73_185, 73_217, 1 << 20])
+def test_compact_column_slices_cover_the_row(row_bytes):
+    """A row fits one launch whole, or goes through byte slices that cover
+    it once, in order, each at most ``SLICE_BYTES`` wide and within 16
+    bytes a slice of an even share, starting on a multiple of 16 bytes, and
+    whose staged bytes
+    (a slot a row, the full row its pitch) fit a launch."""
+    slices = ck.column_slices(row_bytes)
+    if row_bytes <= ck.LAUNCH_ROW_BYTES:
+        assert slices == [(0, row_bytes)]
+        assert ck.staged_bytes(row_bytes, row_bytes) == row_bytes
+        return
+    at = 0
+    for off, nb in slices:
+        assert off == at and off % 16 == 0
+        assert nb <= ck.SLICE_BYTES
+        assert abs(nb - row_bytes / len(slices)) <= 16 * len(slices)
+        assert nb < ck.staged_bytes(nb, row_bytes) <= ck.LAUNCH_ROW_BYTES
+        assert ck.staged_bytes(nb, row_bytes) % 16 == 0
+        at += nb
+    assert at == row_bytes
+    groups = ck.launch_groups([ck.staged_bytes(nb, row_bytes)
+                               for _, nb in slices])
+    assert groups == [[i] for i in range(len(slices))]
+
+
+def test_compact_slices_compose_to_the_whole_row(rng):
+    """The byte slices of a wide row, each compacted as a column of its own
+    (what each further launch does on the card), put together equal the
+    whole row compacted."""
+    n = 500
+    keep = rng.random(n) < 0.3
+    col = rng.integers(0, 256, (n, 40_000), dtype=np.uint8)
+    (whole,), count = ck.blockwise_compact_plain([T(col)], T(keep))
+    parts = [ck.blockwise_compact_plain(
+        [T(np.ascontiguousarray(col[:, off:off + nb]))], T(keep))
+        for off, nb in ck.column_slices(col.shape[1])]
+    assert all(int(c) == int(count) for _, c in parts)
+    np.testing.assert_array_equal(
+        np.concatenate([p[0].numpy() for p, _ in parts], axis=1),
+        whole.numpy())

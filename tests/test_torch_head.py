@@ -169,3 +169,28 @@ def test_voxel_head_plain_matches_pallas_interpret(rng, semantics, leaf):
         ft.fused_voxel_head_exact_local(
             T(local), T(scale), T(rot), T(trans), T(bmin), leaf,
             T(np.asarray(coeffs)), semantics="round")
+
+
+def test_world_bounds_parameters_host_or_tensor(rng):
+    """The parameters reach the kernel as three contiguous f32 tensors on
+    the points' device: numpy arrays, CPU tensors of any float dtype and a
+    flat or (3, 3) rotation all give the same bounds; a wrong size
+    raises."""
+    local = rng.integers(-20_000, 20_000, (777, 3)).astype(np.int32)
+    scale, rot, trans = _affine(theta=1.1, trans=(4.0, -2.5, 7.0))
+    want = ft.fused_world_bounds(T(local), T(scale), T(rot), T(trans))
+    for args in ((scale, rot, trans),
+                 (scale.astype(np.float64), rot.reshape(9), list(trans)),
+                 (T(scale).double(), T(rot).reshape(9), T(trans))):
+        got = ft.fused_world_bounds(T(local), *args)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            assert torch.equal(g, w)
+    s, r, t = ft._bounds_params(scale, rot, trans, torch.device("cpu"))
+    assert [tuple(x.shape) for x in (s, r, t)] == [(3,), (9,), (3,)]
+    assert all(x.dtype == torch.float32 and x.is_contiguous()
+               for x in (s, r, t))
+    with pytest.raises(ValueError, match="rotation"):
+        ft.fused_world_bounds(T(local), scale, rot[:2], trans)
+    with pytest.raises(ValueError, match="translation"):
+        ft.fused_world_bounds(T(local), scale, rot, trans[:2])
