@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """GPU smoke run of pasture_tpu_torch: the transform + voxelize steps, the
-filter -> voxel grid path, normals and registration.
+filter -> voxel grid path, normals, registration and the file -> map fold.
 
 Run ``python3 chip_smoke.py`` on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit.  It
 
 1. names the device (``device``),
-2. builds the package's CUDA kernels from ``ops/kernels/csrc`` (``build``),
+2. builds the package's CUDA kernels from ``ops/kernels/csrc`` and, beside
+   them, the LASzip codec from ``native/src`` (``build``; a codec that does
+   not build fails the run),
    then holds the tile sort against its plain version over every tile
    length, stream count and key count it has a code path for, on
    adversarial tiles (``tile_sort_sweep``), and K6 against its plain
@@ -57,6 +59,20 @@ the CUDA toolkit.  It
    ``PointBatch.concatenate`` of eight padded batches (K5 once), then
    ``convert_batch_schema`` and an LAS encode of the decoded positions that
    must give the locals back, against the same calls on the CPU.
+8. drives the file -> map path (``path_file_to_map``), the port of
+   ``benches/end_to_end_bench.py``: the bench's Morton-ordered survey (200
+   points a square metre) written by the package's ``LasWriter`` as a LAS
+   file of 16 777 216 points and, with the same points beside it as LAS, a
+   LAZ file of 4 194 304, each folded by ``streaming_voxel_downsample`` in
+   chunks of 2**20 points (512-row tile sorts on K4, compactions on K5,
+   the two-stage merge on the card).  Gate before any time counts: the
+   LAS fold with run tables equals a one-shot voxelization of the whole
+   file (count, cell keys, point counts, Classification; Intensity within
+   1; centroids within 1e-4 m + 1e-6) and an f64 oracle within 5e-4 m;
+   the LAZ fold equals the LAS fold of its points bit for bit.  Then host
+   read, upload, the fold's time (median of 2), device busy, K4 / K5
+   launches a chunk and the fold's host syncs; K4 and K5 are held against
+   their plain versions on the inputs the fold gave them.
 
 The ``kernels`` phase also holds K6 against its plain version at the
 normals path's shape and at the point-to-plane ICP's.  ``--profile`` adds
@@ -74,9 +90,12 @@ from __future__ import annotations
 
 import importlib
 import json
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -86,6 +105,8 @@ from pasture_tpu_torch._device import resolve_device
 from pasture_tpu_torch.algorithms import normals as normals_mod
 from pasture_tpu_torch.buffers.device import PointBatch
 from pasture_tpu_torch.buffers.host import HostPointBuffer
+from pasture_tpu_torch.io import open_reader, read_all, write_all
+from pasture_tpu_torch.io import streaming
 from pasture_tpu_torch.layout import attributes as att
 from pasture_tpu_torch.layout import dtypes as dt
 from pasture_tpu_torch.layout.schema import PointSchema
@@ -101,13 +122,16 @@ from pasture_tpu_torch.ops.kernels import fused_transform as ft
 from pasture_tpu_torch.ops.kernels import tile_sort_kernel as ts
 from pasture_tpu_torch.ops.kernels import voxel_reduce_kernel as vr
 from pasture_tpu_torch.ops.kernels import window_fit_kernel as wf
+from pasture_tpu_torch.native import laszip
 from pasture_tpu_torch.ops.compact import compact_columns
 from pasture_tpu_torch.pipeline import RegistrationPipeline
 from pasture_tpu_torch.registration import icp, optimize_pose_graph, so3_exp
 from pasture_tpu_torch.registration.pose_graph import edge_residuals
 
-# the module (the package's ``voxel_downsample`` is the function)
+# the modules (the package's ``voxel_downsample`` and
+# ``merge_voxel_batches`` are the functions)
 voxel_mod = importlib.import_module("pasture_tpu_torch.ops.voxel")
+merge_mod = importlib.import_module("pasture_tpu_torch.ops.voxel_merge")
 
 N = 1 << 22          # points of the headline step
 LEAF = 0.5
@@ -157,6 +181,19 @@ LAS_OFFSET = np.asarray([500000.0, 4000000.0, 0.0])
 CONVERT_SCHEMA = PointSchema.from_attributes(
     [LAS_LOCAL, att.INTENSITY.with_dtype(dt.F32), att.CLASSIFICATION,
      att.GPS_TIME])
+
+# the file -> map path: the survey of benches/end_to_end_bench.py (200
+# points a square metre, Morton-ordered), folded in chunks of 2**20 points
+# sorted in 512-row tiles; the bench's 2**25 points are halved for LAS, and
+# LAZ (whose host compression is the slow side) takes 2**22
+SURVEY_DENSITY = 200.0
+FILE_LAS_POINTS = 1 << 24
+FILE_LAZ_POINTS = 1 << 22
+FILE_CHUNK = 1 << 20
+FILE_TILE = 512
+FILE_DIR = "_file_to_map"     # under the checkout; removed after the phase
+SURVEY_SCHEMA = PointSchema.from_attributes(
+    [att.POSITION_3D, att.INTENSITY, att.CLASSIFICATION])
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and the float32 rate outside the tensor cores, which is also what the
@@ -568,6 +605,185 @@ def path_concat_convert(batches: list):
                                               rounding="round")
 
 
+# ---- the file -> map path -----------------------------------------------------
+
+def _morton_u64(cell: np.ndarray) -> np.ndarray:
+    """63-bit Morton code of (n, 3) cells of up to 20 bits (the bench's)."""
+    def expand(v):
+        v = v.astype(np.uint64) & np.uint64(0xFFFFF)
+        v = (v | (v << np.uint64(32))) & np.uint64(0xFFFF00000000FFFF)
+        v = (v | (v << np.uint64(16))) & np.uint64(0x00FF0000FF0000FF)
+        v = (v | (v << np.uint64(8))) & np.uint64(0xF00F00F00F00F00F)
+        v = (v | (v << np.uint64(4))) & np.uint64(0x30C30C30C30C30C3)
+        v = (v | (v << np.uint64(2))) & np.uint64(0x9249249249249249)
+        return v
+    return (expand(cell[:, 0]) | (expand(cell[:, 1]) << np.uint64(1))
+            | (expand(cell[:, 2]) << np.uint64(2)))
+
+
+def make_survey(n: int, seed: int = 11) -> HostPointBuffer:
+    """``benches/end_to_end_bench.py``'s survey: a square of SURVEY_DENSITY
+    points a square metre, gentle terrain with per-point noise, Morton-
+    ordered as survey archives are; Intensity uniform in [0, 4096) and
+    Classification a function of x."""
+    rng = np.random.default_rng(seed)
+    side = float(np.sqrt(n / SURVEY_DENSITY))
+    xy = rng.uniform(0, side, (n, 2))
+    z = (4.0 * np.sin(xy[:, 0] * 0.02) + 3.0 * np.cos(xy[:, 1] * 0.017)
+         + rng.normal(0, 0.05, n) + 50.0)
+    pos = np.stack([xy[:, 0], xy[:, 1], z], axis=1)
+    pmin = pos.min(0)
+    ext = (pos.max(0) - pmin).max()
+    cell = np.clip((pos - pmin) / ext * (1 << 20), 0,
+                   (1 << 20) - 1).astype(np.uint64)
+    order = np.argsort(_morton_u64(cell), kind="stable")
+    inten = rng.integers(0, 4096, n).astype(np.uint16)
+    cls = ((cell[order, 0] >> np.uint64(13)) % np.uint64(7)).astype(np.uint8)
+    return HostPointBuffer.from_columns(SURVEY_SCHEMA, {
+        POS: pos[order], INT: inten, CLS: cls})
+
+
+def file_fold(path, device=None, **kw):
+    """The fold of the bench: ``streaming_voxel_downsample`` of the file
+    in FILE_CHUNK chunks, tiles of FILE_TILE rows, a 10-bit grid anchored
+    at the header's bounds."""
+    return streaming.streaming_voxel_downsample(
+        path, LEAF, chunk_points=FILE_CHUNK, grid_bits=10,
+        use_metadata_bounds=True, sort_tiles=FILE_CHUNK // FILE_TILE,
+        schema=SURVEY_SCHEMA, device=device, **kw)
+
+
+def header_min(path) -> np.ndarray:
+    with open_reader(path) as r:
+        return np.asarray(r.get_metadata().bounds().min, np.float32)
+
+
+def one_shot(path, device=None):
+    """The whole file read as one batch and voxelized with one global sort
+    in plain PyTorch (``sort_tiles=1``, ``fused=False``), with its merge
+    statistics (keys, counts); returns ``((batch, aux), f64 positions)``."""
+    buf = read_all(path, SURVEY_SCHEMA)
+    batch = PointBatch.from_host(buf, device=device)
+    bmin = torch.from_numpy(header_min(path)).to(batch.device)
+    return voxel_downsample(batch, LEAF, bounds=(bmin, None),
+                            semantics="floor", grid_bits=10, with_aux=True,
+                            fused=False), buf.get(POS)
+
+
+def survey_oracle(pos64: np.ndarray, gmin: np.ndarray):
+    """``(keys, f64 means)`` of every voxel, in key order: cells from the
+    f32 positions as the device computes them, means of the f64 ones."""
+    u = (pos64.astype(np.float32) - gmin) / np.float32(LEAF)
+    cell = np.clip(np.floor(u), 0, 1023).astype(np.uint64)
+    keys, inverse, counts = np.unique(_morton_u64(cell).astype(np.int64),
+                                      return_inverse=True,
+                                      return_counts=True)
+    return keys, np.stack([np.bincount(inverse, weights=pos64[:, a])
+                           for a in range(3)], axis=1) / counts[:, None]
+
+
+def compare_folds(what: str, got, ref) -> None:
+    """Two folds' results equal bit for bit: the count, every column and
+    the cell keys and counts."""
+    (gb, ga), (rb, ra) = got, ref
+    if int(gb.count.item()) != int(rb.count.item()):
+        raise AssertionError(f"{what}: {int(gb.count.item())} voxels, "
+                             f"reference {int(rb.count.item())}")
+    for name, col in rb.data.items():
+        if not torch.equal(gb.data[name], col):
+            raise AssertionError(f"{what}: column {name} differs")
+    if not (torch.equal(ga["keys"][0], ra["keys"][0])
+            and torch.equal(ga["counts"], ra["counts"])):
+        raise AssertionError(f"{what}: cell keys or counts differ")
+
+
+def gate_file_to_map(path, device=None) -> dict:
+    """The fold with run tables against a one-shot voxelization of the
+    whole file: equal voxel count, cell keys, point counts and
+    Classification; Intensity within 1; centroids within 1e-4 m + 1e-6 of
+    the one-shot's and within 5e-4 m of an f64 oracle; no truncated run
+    table.  Then the default fold (the top-2 vote): its Classification
+    mismatches with the one-shot as a share.  Returns the readings."""
+    kernels.reset_launch_counts()
+    fb, fa = file_fold(path, device=device, mode_runs=True, with_aux=True)
+    runs_launches = kernels.launch_counts()
+    (ob, oa), pos64 = one_shot(path, device=device)
+    nv = int(fb.count.item())
+    if nv == 0 or nv != int(ob.count.item()):
+        raise AssertionError(f"file -> map: {nv} voxels, one-shot "
+                             f"{int(ob.count.item())}")
+    if not (torch.equal(fa["keys"][0][:nv], oa["keys"][0][:nv])
+            and torch.equal(fa["counts"][:nv], oa["counts"][:nv])):
+        raise AssertionError("file -> map: cell keys or point counts differ "
+                             "from the one-shot's")
+    if not torch.equal(fb.data[CLS][:nv], ob.data[CLS][:nv]):
+        raise AssertionError("file -> map: Classification differs from the "
+                             "one-shot's")
+    dint = (fb.data[INT][:nv] - ob.data[INT][:nv]).abs().max().item()
+    if dint > 1:
+        raise AssertionError(f"file -> map: Intensity differs by {dint}")
+    got, ref = fb.data[POS][:nv], ob.data[POS][:nv]
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("file -> map: non-finite centroids")
+    excess = ((got - ref).abs() - (1e-4 + 1e-6 * ref.abs())).max().item()
+    if excess > 0:
+        raise AssertionError(f"file -> map: centroids off the one-shot's by "
+                             f"{excess} m beyond 1e-4 m + 1e-6")
+    err_one = (got - ref).abs().max().item()
+    truncated = [n for n, rt in fa["mode_runs"].items()
+                 if bool(rt["input_truncated"].item())]
+    if truncated:
+        raise AssertionError(f"file -> map: truncated run tables {truncated}")
+    okeys, omeans = survey_oracle(pos64, header_min(path))
+    if not np.array_equal(okeys, fa["keys"][0][:nv].cpu().numpy()):
+        raise AssertionError("file -> map: cell keys differ from the f64 "
+                             "oracle's")
+    err_oracle = float(np.abs(got.cpu().numpy().astype(np.float64)
+                              - omeans).max())
+    if not err_oracle < 5e-4:
+        raise AssertionError(f"file -> map: a centroid is {err_oracle} m "
+                             f"from the f64 oracle")
+    vote = file_fold(path, device=device)
+    if int(vote.count.item()) != nv:
+        raise AssertionError("file -> map: the default fold counts "
+                             f"{int(vote.count.item())} voxels")
+    miss = (vote.data[CLS][:nv] != ob.data[CLS][:nv]).sum().item()
+    return {"voxels": nv, "gate_passed": True,
+            "max_err_vs_one_shot": err_one,
+            "max_intensity_diff": dint, "max_err_vs_f64_oracle": err_oracle,
+            "top2_vote_classification_mismatch_share": miss / nv,
+            "mode_runs_fold_launches": {
+                k: runs_launches[k] for k in ("tile_sort",
+                                              "blockwise_compact")}}
+
+
+def upload_ms(path, device, reps: int = 5) -> float:
+    """Median ms of one chunk's upload by the fold's read-ahead: into a
+    pinned buffer, then to the card on the upload stream."""
+    with open_reader(path) as r:
+        buf = r.read(FILE_CHUNK, SURVEY_SCHEMA)
+    up = streaming._PinnedUpload(device, FILE_CHUNK,
+                                  dt.DevicePolicy.NARROW)
+    times = []
+    for i in range(reps + 1):
+        t0 = time.perf_counter()
+        _, event = up(buf)
+        event.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def host_read_s(path) -> float:
+    """Seconds of the host's converting read of the whole file in chunks
+    (the bench's ``host_read_row``)."""
+    t0 = time.perf_counter()
+    with open_reader(path) as r:
+        while len(r.read(FILE_CHUNK, SURVEY_SCHEMA)):
+            pass
+    return time.perf_counter() - t0
+
+
 # ---- timing ------------------------------------------------------------------
 
 _SPIN_CYCLES = 20_000_000   # ~10 ms of GPU idle spin: the host runs ahead
@@ -620,10 +836,26 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    """The CUDA kernels (one ``nvcc`` per source, side by side) and, at the
+    same time, the LASzip codec (``g++``).  A codec that does not build
+    fails the run: the reader would otherwise fall back to numpy."""
     t0 = time.perf_counter()
-    _build.build_all()
+
+    def build_codec() -> float:
+        laszip._native(required=True)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        codec = ex.submit(build_codec)
+        _build.build_all()
+        kernels_s = time.perf_counter() - t0
+        codec_s = codec.result()
     print(json.dumps({"phase": "build", "sources": sorted(_build.SOURCES),
-                      "seconds": time.perf_counter() - t0}), flush=True)
+                      "seconds": kernels_s,
+                      "codec": "pasture_tpu_torch/native/src/laszip.cpp",
+                      "codec_seconds": codec_s,
+                      "total_seconds": time.perf_counter() - t0}),
+          flush=True)
 
 
 def _pack_word(batch: PointBatch) -> torch.Tensor:
@@ -1146,6 +1378,18 @@ def phase_world_bounds_sweep(dev: torch.device, affine) -> None:
                       "seconds": time.perf_counter() - t0}), flush=True)
 
 
+def add_row(rows: list, name, source, replaces, err, ms, plain_ms, n_bytes,
+            n_ops, library_ms=None, path="main_path", counter=None) -> None:
+    """Append a kernel row; its ``launches`` are read from ``path``'s run
+    (``counter``: its key in ``kernels.launch_counts()``)."""
+    b_ms, by = bound(n_bytes, n_ops)
+    ROW_PATH[name] = (path, counter or name)
+    rows.append({"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": 0,
+                 "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": by, "library_ms": library_ms})
+
+
 def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
     """Each kernel against its plain version at the main path's shapes."""
     dev = batch.device
@@ -1156,15 +1400,8 @@ def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
 
-    def row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops,
-            library_ms=None, path="main_path", counter=None):
-        b_ms, by = bound(n_bytes, n_ops)
-        ROW_PATH[name] = (path, counter or name)
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": 0,
-                     "max_abs_err": float(err), "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-                     "library_ms": library_ms})
+    def row(*args, **kw):
+        add_row(rows, *args, **kw)
 
     # K1: bit-exact (the same individually rounded f32 operations; min and
     # max do not depend on order)
@@ -2101,6 +2338,184 @@ def phase_path_registration(smi: str) -> None:
         flush=True)
 
 
+def counted_fold(path, device=None):
+    """One default fold with the launch counts and the fold's host syncs
+    set to 0 just before and read just after; the first K4 call's streams
+    and the merge's first key compaction are captured on the way.  Returns
+    ``(result, launches, host syncs, captured)``."""
+    captured = {}
+
+    def capture_sort(streams, tile_len, num_keys=1):
+        captured.setdefault("tile_sort", ([s.clone() for s in streams],
+                                          tile_len, num_keys))
+        return ts.tile_sort(streams, tile_len, num_keys=num_keys)
+
+    def capture_compact(cols, keep):
+        captured.setdefault("compact", ([c.clone() for c in cols],
+                                        keep.clone()))
+        return compact_columns(cols, keep)
+
+    voxel_mod.tile_sort = capture_sort
+    merge_mod.compact_columns = capture_compact
+    try:
+        kernels.reset_launch_counts()
+        streaming.HOST_SYNCS["streaming_voxel_downsample"] = 0
+        out = file_fold(path, device=device)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        syncs = streaming.HOST_SYNCS["streaming_voxel_downsample"]
+    finally:
+        voxel_mod.tile_sort = ts.tile_sort
+        merge_mod.compact_columns = compact_columns
+    return out, counts, syncs, captured
+
+
+def file_to_map_rows(rows: list, captured: dict) -> None:
+    """K4 and K5 held against their plain versions on the inputs this path
+    gave them, timed, and added as rows of the ``path_file_to_map`` run."""
+    dev = captured["compact"][1].device
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    streams, tile_len, num_keys = captured["tile_sort"]
+    n = streams[0].shape[0]
+    tiles = n // tile_len
+    _, dkey = check_tile_sort(streams, tile_len, num_keys)
+    packed = ((u32_carrier(streams[0]) << 32)
+              | u32_carrier(streams[1])).reshape(tiles, tile_len)
+    rest = [s.reshape(tiles, tile_len) for s in streams[2:]]
+
+    def library_sort():
+        srt = torch.sort(packed, dim=1)
+        return srt.values, [r.gather(1, srt.indices) for r in rest]
+
+    stages = (tile_len.bit_length() - 1) * tile_len.bit_length() // 2
+    k = len(streams)
+    add_row(rows, "tile_sort_file_to_map", _CSRC + "tile_sort.cu",
+            _TPU + "tile_sort_kernel.py:132", dkey,
+            gpu_ms(lambda: kernels.tile_sort(streams, tile_len,
+                                             num_keys=num_keys), flush),
+            gpu_ms(lambda: ts.tile_sort_plain(streams, tile_len,
+                                              num_keys=num_keys), flush,
+                   reps=5),
+            # 4 B read + 4 B written per stream and row; per
+            # compare-exchange 4 compares of the two key words and 2 moves
+            # a stream
+            8.0 * k * n, (4.0 + 2 * k) * stages * (n // 2),
+            library_ms=gpu_ms(library_sort, flush, reps=5),
+            path="path_file_to_map", counter="tile_sort")
+
+    cols, keep = captured["compact"]
+    m = keep.shape[0]
+    got, gcount = ck.blockwise_compact(cols, keep)
+    want, wcount = ck.blockwise_compact_plain(cols, keep)
+    torch.cuda.synchronize()
+    kept = int(gcount.item())
+    if kept != int(wcount.item()) or not all(
+            torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("blockwise_compact on the file -> map merge's "
+                             "keys differs from its plain version")
+    row_bytes = sum(c.numel() // m * c.element_size() for c in cols)
+    add_row(rows, "blockwise_compact_file_to_map", _CSRC + "compact.cu",
+            _TPU + "compact_kernel.py:135", 0.0,
+            gpu_ms(lambda: ck.blockwise_compact(cols, keep), flush),
+            gpu_ms(lambda: ck.blockwise_compact_plain(cols, keep), flush,
+                   reps=5),
+            # the mask and every row read once, every output row written
+            # once; a ballot, a popcount and a few adds per row, one move
+            # per 4 bytes of a kept row
+            m + 2.0 * row_bytes * m, 12.0 * m + row_bytes / 4.0 * kept,
+            library_ms=gpu_ms(lambda: [c[keep] for c in cols], flush,
+                              reps=5),
+            path="path_file_to_map", counter="blockwise_compact")
+
+
+def timed_folds(path, device, points: int, reps: int = 2) -> dict:
+    """The fold as a caller sees it, ingest included (median of ``reps``
+    runs, each ending in the read of the voxel count), then the device's
+    busy time inside one more fold (``torch.profiler``, copies included)."""
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        int(file_fold(path, device=device).count.item())
+        runs.append(time.perf_counter() - t0)
+    prof = gpu_profile(lambda i: file_fold(path, device=device).count.item(),
+                       steps=1)
+    fold_s = float(np.median(runs))
+    return {"fold_s": fold_s, "fold_s_runs": runs, "repeats": reps,
+            "mpoints_per_s": points / fold_s / 1e6,
+            "traced_fold_s": prof["traced_wall_ms_per_step"] / 1e3,
+            "device_busy_s": prof["device_busy_ms_per_step"] / 1e3,
+            "device_busy_share": prof["device_busy_ms_per_step"]
+            / prof["traced_wall_ms_per_step"],
+            "device_launches": prof["device_launches_per_step"],
+            "top": prof["top"][:6]}
+
+
+def phase_path_file_to_map(rows: list, smi: str, device=None) -> None:
+    """The port of ``benches/end_to_end_bench.py``: a survey written as LAS
+    (FILE_LAS_POINTS) and as LAZ (FILE_LAZ_POINTS, beside the same points
+    as LAS) by the package's writer, each folded to a voxel map on the
+    card.  The LAS fold is gated (``gate_file_to_map``) and the LAZ fold
+    must equal the LAS fold of the same points bit for bit, before any time
+    counts; K4 and K5 must launch on the path."""
+    dev = resolve_device(device)
+    work = Path(__file__).resolve().parent / FILE_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    try:
+        las = work / "survey.las"
+        t0 = time.perf_counter()
+        write_all(make_survey(FILE_LAS_POINTS), las)
+        write_s = time.perf_counter() - t0
+        gate = gate_file_to_map(las, dev)
+        out, counts, syncs, captured = counted_fold(las, dev)
+        file_to_map_rows(rows, captured)
+        del captured
+        read_launches(rows, "path_file_to_map", counts)
+        report(las, FILE_LAS_POINTS, dev, smi, {
+            "file": "las", "write_s": write_s, **gate}, out, counts, syncs)
+
+        small = make_survey(FILE_LAZ_POINTS, seed=12)
+        las2, laz = work / "survey_small.las", work / "survey_small.laz"
+        write_all(small, las2)
+        t0 = time.perf_counter()
+        write_all(small, laz)
+        write_s = time.perf_counter() - t0
+        del small
+        out, counts, syncs, _ = counted_fold(laz, dev)
+        expect_launched("path_file_to_map (laz)", counts, "tile_sort",
+                        "blockwise_compact")
+        compare_folds("the LAZ fold against the LAS fold of its points",
+                      file_fold(laz, dev, with_aux=True),
+                      file_fold(las2, dev, with_aux=True))
+        report(laz, FILE_LAZ_POINTS, dev, smi, {
+            "file": "laz", "write_s": write_s, "voxels":
+            int(out.count.item()), "equal_to_las_fold": True}, out, counts,
+            syncs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def report(path, points: int, dev, smi: str, head: dict, out, counts,
+           syncs: int) -> None:
+    """One ``path_file_to_map`` line: host read, upload, the timed folds
+    and the counted one's launches and host syncs."""
+    chunks = -(-points // FILE_CHUNK)
+    read_s = host_read_s(path)
+    folds = timed_folds(path, dev, points)
+    print(json.dumps({
+        "phase": "path_file_to_map", **head, "points": points,
+        "bytes": path.stat().st_size, "chunks": chunks,
+        "chunk": FILE_CHUNK, "tile": FILE_TILE, "leaf": LEAF,
+        "host_read_s": read_s, "host_read_mpoints_per_s": points / read_s
+        / 1e6, "upload_ms_per_chunk": upload_ms(path, dev),
+        **folds, "launches": counts,
+        "tile_sort_per_chunk": counts["tile_sort"] / chunks,
+        "blockwise_compact_per_chunk": counts["blockwise_compact"] / chunks,
+        "device_ms_per_chunk": folds["device_busy_s"] * 1e3 / chunks,
+        "fold_host_syncs": syncs, "voxels_counted_run": int(out.count.item()),
+        "card": smi}), flush=True)
+
+
 def cg_iteration_ms(graph) -> float:
     """GPU time of one PCG iteration of the pose graph, its host read of
     r·z included: one Gauss-Newton step with 64 CG iterations forced (a
@@ -2144,6 +2559,7 @@ def main() -> int:
     src, tgt = phase_path_icp(dev, rows, smi)
     phase_path_registration(smi)
     phase_path_concat_convert(smi)
+    phase_path_file_to_map(rows, smi)
     if "--profile" in sys.argv[1:]:
         def shift(i):
             return (i % 7) * 1e-6

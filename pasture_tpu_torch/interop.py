@@ -22,6 +22,7 @@ from .layout.dtypes import DevicePolicy, carrier_np_dtype
 from .layout.schema import PointSchema
 
 __all__ = ["batch_from_reference_arrays", "batch_to_reference_arrays",
+           "aux_from_reference", "aux_to_reference",
            "affine_from_reference", "head_args_from_reference",
            "pose_graph_from_reference", "pose_graph_to_reference"]
 
@@ -76,6 +77,47 @@ def batch_to_reference_arrays(batch: PointBatch
             cols[name] = arr.astype(batch.logical_dtype(name))
     meta = {k: v.detach().cpu().numpy() for k, v in batch.meta.items()}
     return cols, int(batch.count.item()), batch.schema.names, meta
+
+
+def aux_from_reference(aux: Mapping,
+                       device: Optional[Union[str, torch.device]] = None
+                       ) -> Dict:
+    """The port's merge statistics from the numpy arrays of a JAX ``aux``
+    dict (``voxel_downsample(with_aux=True)`` or ``merge_voxel_batches``):
+    the u32 cell keys become int64 carriers, the i32 columns int32, the
+    mode dicts, the run tables (``num_runs`` and ``input_truncated`` as 0-d
+    tensors) and ``raw_means`` keep their structure.  ``device=None`` means
+    the GPU."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, Mapping):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return tuple(conv(v) for v in x)
+        a = np.array(x)
+        if a.dtype.kind in "iu":
+            a = a.astype(carrier_np_dtype(a.dtype))
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return conv(aux)
+
+
+def aux_to_reference(aux: Mapping) -> Dict:
+    """``aux`` of the port as numpy in the JAX package's dtypes — what
+    ``jnp.asarray`` needs to rebuild it: cell keys back to uint32, the
+    other integer columns int32, 0-d values as 0-d arrays."""
+    def conv(x, key=False):
+        if isinstance(x, Mapping):
+            return {k: conv(v, k == "keys") for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return tuple(conv(v, key) for v in x)
+        a = x.detach().cpu().numpy()
+        if key:
+            return a.astype(np.uint32)
+        return a.astype(np.int32) if a.dtype.kind in "iu" else a
+
+    return conv(aux)
 
 
 def affine_from_reference(scale, rot, trans, coeffs,

@@ -16,3 +16,4 @@ from .transform import (  # noqa: F401
     affine_transform, decode_las_positions, encode_las_positions,
     transform_positions)
 from .voxel import voxel_downsample, voxel_indices  # noqa: F401
+from .voxel_merge import merge_voxel_batches  # noqa: F401

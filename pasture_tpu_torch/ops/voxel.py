@@ -41,8 +41,11 @@ Unknown attributes default to mean for floats and mode for integers; ties
 in mode go to the smallest value (the reference's HashMap iteration is
 nondeterministic there).  Cell-index semantics ``"nearest"`` reproduces the
 reference's nearest-marker clamp (voxel_grid.rs:22-51); ``"floor"`` is
-standard voxel binning.  Float averages accumulate in f32 (f64 when the
-column is f64); integer columns are summed exactly and divided in f32.
+standard voxel binning.  Float averages accumulate in f64 and round once
+to the column's type — sums of millimetre-quantized f32 coordinates are
+then exact, so a mean does not depend on the order of the GPU's atomic adds
+and a run is repeatable bit for bit; integer columns are summed exactly and
+divided in f32.
 
 ``grid_bits`` bounds the cell grid per axis: 10 (1024³ cells) uses a single
 u32 Morton sort key; up to 20 uses a dual-u32 key.
@@ -305,8 +308,27 @@ def voxel_downsample(batch: PointBatch, leaf_size,
     ``fused=False`` runs the generic path in plain PyTorch all the way: the
     oracle the fast path is held against.
 
-    Not ported yet (``NotImplementedError``): ``with_aux`` and
-    ``mode_runs`` (file -> map slice: two-stage merge statistics).
+    ``with_aux``: also return the per-voxel merge statistics that make the
+    two-stage (chunked / streaming) voxelization EXACTLY equal the one-shot
+    global result — the return value becomes ``(batch, aux)`` with ``aux =
+    {"keys": (nk,)-tuple of cell-key columns (u32 carriers, int64),
+    "counts": i32 points per voxel, "mode_counts": {name: i32 count of the
+    winning mode value}, "mode2_values" / "mode2_counts": {name: the
+    RUNNER-UP mode value and its count (0, 0 when the voxel holds a single
+    distinct value)}, "raw_means": {name: f32 UNROUNDED mean of an integer
+    mean column, whose output cast truncates}}``, each aligned with the
+    output rows; rows past ``count`` hold the invalid key 0xFFFFFFFF and
+    zeros, so concatenated partials feed
+    :func:`~pasture_tpu_torch.ops.merge_voxel_batches` without masks.  The
+    statistics come from the generic path (the fused reduce emits none).
+
+    ``mode_runs`` (requires ``with_aux``): additionally emit, per mode
+    column, the FULL per-(voxel, value) run table —
+    ``aux["mode_runs"][name] = {"keys": (nk,)-tuple, "values": i32,
+    "counts": i32, "num_runs": 0-d i32}`` (capacity rows, key-ordered,
+    compacted by ``compact_columns``, padded with the invalid key / zeros)
+    — the voxel's complete value histogram, with which the merge elects
+    the global mode exactly.
 
     Example — four corner points collapse to two 1m voxels, centroids =
     per-voxel means (reference ``voxelgrid_filter``, voxel_grid.rs:109-165):
@@ -364,10 +386,6 @@ def voxel_downsample(batch: PointBatch, leaf_size,
                          "statistic)")
     if semantics not in ("nearest", "floor"):
         raise ValueError(f"unknown voxel semantics {semantics!r}")
-    if with_aux or mode_runs:
-        raise NotImplementedError(
-            "voxel_downsample(with_aux=/mode_runs=): the merge statistics "
-            "arrive with the file -> map slice (merge_voxel_batches)")
 
     pol = dict(DEFAULT_POLICIES)
     if policies:
@@ -477,6 +495,7 @@ def voxel_downsample(batch: PointBatch, leaf_size,
         and policy_of(position_attribute) == "mean")
     can_fuse = (
         (carry_q and not loose_idx or exact_pos_fused) and nk == 1
+        and not with_aux   # the fused reduce emits no merge statistics
         and packed_word is not None and scalar_leaf
         and all(policy_of(flat_names[i]) == "mean"
                 and carry_data[flat_names[i]].ndim == 1
@@ -552,24 +571,19 @@ def voxel_downsample(batch: PointBatch, leaf_size,
     tile_start = (row % tile_len == 0) if sort_tiles > 1 else None
 
     def key_changes(ks):
-        new = torch.ones(cap, dtype=torch.bool, device=dev)
-        if cap > 1:
-            diff = ks[0][1:] != ks[0][:-1]
-            for k in ks[1:]:
-                diff = diff | (k[1:] != k[:-1])
-            new[1:] = diff
+        new = row_starts(ks)
         return new if tile_start is None else new | tile_start
 
     new_key = key_changes(skeys)
     first = new_key & valid
-    # a voxel's segment id is its output row; invalid rows go to a spare slot
+    # a voxel's segment id is its output row; invalid rows go to spare slots
     seg = torch.cumsum(first.to(torch.int64), 0) - 1
-    slot = torch.where(valid, seg, torch.full_like(seg, cap))
-    vkeys, num_voxels = (compact_columns if fused
-                         else blockwise_compact_plain)(list(skeys), first)
+    slot = spare_slots(seg, valid, cap)
+    compact = compact_columns if fused else blockwise_compact_plain
+    vkeys, num_voxels = compact(list(skeys), first)
 
     def seg_sum(v, acc):
-        out = torch.zeros((cap + 1,) + tuple(v.shape[1:]), dtype=acc,
+        out = torch.zeros((2 * cap,) + tuple(v.shape[1:]), dtype=acc,
                           device=dev)
         vm = valid.reshape((cap,) + (1,) * (v.ndim - 1))
         out.index_add_(0, slot, torch.where(vm, v.to(acc),
@@ -577,8 +591,10 @@ def voxel_downsample(batch: PointBatch, leaf_size,
                                                         device=dev)))
         return out[:cap]
 
-    counts = torch.clamp(seg_sum(torch.ones_like(seg), torch.int64), min=1)
+    npts = seg_sum(torch.ones_like(seg), torch.int64)
+    counts = torch.clamp(npts, min=1)
     reduced: Dict[str, torch.Tensor] = {}
+    raw_means: Dict[str, torch.Tensor] = {}
 
     # ---- mean --------------------------------------------------------------
     for n, c in sorted_cols.items():
@@ -588,10 +604,13 @@ def voxel_downsample(batch: PointBatch, leaf_size,
             acc = torch.float32
             sums = seg_sum(c, torch.int64).to(acc)   # exact, then rounded
         else:
-            acc = torch.float64 if c.dtype == torch.float64 \
-                else torch.float32
+            acc = torch.float64
             sums = seg_sum(c, acc)
         cnt = counts.to(acc).reshape((cap,) + (1,) * (c.ndim - 1))
+        if with_aux and _is_int(ldt[n]):
+            # the cast truncates, so merging partials needs the UNROUNDED
+            # partial mean
+            raw_means[n] = sums / cnt
         reduced[n] = _cast_as(sums / cnt, ldt[n])
 
     if quantize_pos:
@@ -640,39 +659,172 @@ def voxel_downsample(batch: PointBatch, leaf_size,
         vm = valid.reshape((cap,) + (1,) * (v.ndim - 1))
         v = torch.where(vm, v, torch.full((), float("-inf"), dtype=acc,
                                           device=dev))
-        m = torch.full((cap + 1,) + tuple(v.shape[1:]), float("-inf"),
+        m = torch.full((2 * cap,) + tuple(v.shape[1:]), float("-inf"),
                        dtype=acc, device=dev)
         index = slot.reshape((cap,) + (1,) * (v.ndim - 1)).expand_as(v)
         m.scatter_reduce_(0, index, v, "amax", include_self=True)
         reduced[n] = _cast_as(torch.clamp(m[:cap], min=0.0), ldt[n])
 
     # ---- mode: run lengths over (key, value)-sorted values -----------------
+    mode_stats: Dict[str, Tuple[torch.Tensor, ...]] = {}
+    run_tables: Dict[str, Dict] = {}
     for n in mode_names:
         col = batch.data[n]
         if n == fused_mode:
             # already value-ordered by the packed word of the main sort;
             # sign-extended so "smallest value wins" keeps signed order
             sv = _unpack_field(sword, 32 - mode_bits, mode_bits, ldt[n])
-            nk_new, seg_n = new_key, seg
+            nk_new, seg_n, sk_n = new_key, seg, skeys
         else:
             # the value as a second sort key: offset so that it is a u32
             val = wrap_to_logical(col, np.int32).to(torch.int64) + (1 << 31)
             s = _tiled_sort(tuple(keys) + (val,), nk + 1, sort_tiles,
                             fused and nk < 2)
             sv = s[nk] - (1 << 31)
-            nk_new = key_changes(s[:nk])
+            sk_n = s[:nk]
+            nk_new = key_changes(sk_n)
             seg_n = torch.cumsum((nk_new & valid).to(torch.int64), 0) - 1
-        vdiff = torch.ones(cap, dtype=torch.bool, device=dev)
-        if cap > 1:
-            vdiff[1:] = sv[1:] != sv[:-1]
-        mv = segment_mode(sv, (nk_new | vdiff) & valid, seg_n, valid, cap)
+        runs = (nk_new | row_starts([sv])) & valid
+        if not with_aux:
+            mv = segment_mode(sv, runs, seg_n, valid, cap)
+            reduced[n] = _cast_as(mv.to(torch.float32), ldt[n])
+            continue
+        mv, mc, m2v, m2c, run_len = mode_top2(
+            sv, runs, torch.ones_like(sv), seg_n, valid, cap)
         reduced[n] = _cast_as(mv.to(torch.float32), ldt[n])
+        mode_stats[n] = (mc, m2v, m2c)
+        if mode_runs:
+            run_tables[n] = run_table(list(sk_n), sv, run_len, runs, cap,
+                                      compact)
 
     live = row < num_voxels
-    out_data = {}
-    for n, c in reduced.items():
+
+    def live_or(c: torch.Tensor, fill) -> torch.Tensor:
         lm = live.reshape((cap,) + (1,) * (c.ndim - 1))
-        out_data[n] = torch.where(lm, c, torch.zeros((), dtype=c.dtype,
-                                                     device=dev))
-    return PointBatch(out_data, num_voxels, batch.schema, batch.meta,
-                      batch.policy)
+        return torch.where(lm, c, torch.full((), fill, dtype=c.dtype,
+                                             device=dev))
+
+    out_data = {n: live_or(c, 0) for n, c in reduced.items()}
+    out = PointBatch(out_data, num_voxels, batch.schema, batch.meta,
+                     batch.policy)
+    if not with_aux:
+        return out
+    i32 = torch.int32
+    aux = {
+        "keys": tuple(live_or(k, _INVALID_KEY) for k in vkeys),
+        "counts": live_or(npts, 0).to(i32),
+        "mode_counts": {n: live_or(st[0], 0).to(i32)
+                        for n, st in mode_stats.items()},
+        "mode2_values": {n: live_or(st[1], 0).to(i32)
+                         for n, st in mode_stats.items()},
+        "mode2_counts": {n: live_or(st[2], 0).to(i32)
+                         for n, st in mode_stats.items()},
+        "raw_means": {n: live_or(m, 0.0) for n, m in raw_means.items()},
+    }
+    if mode_runs:
+        aux["mode_runs"] = run_tables
+    return out, aux
+
+
+def row_starts(cols: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Row flags: True on row 0 and where any of ``cols`` differs from the
+    row above."""
+    n = cols[0].shape[0]
+    new = torch.ones(n, dtype=torch.bool, device=cols[0].device)
+    if n > 1:
+        diff = cols[0][1:] != cols[0][:-1]
+        for c in cols[1:]:
+            diff = diff | (c[1:] != c[:-1])
+        new[1:] = diff
+    return new
+
+
+def spare_slots(index: torch.Tensor, keep: torch.Tensor, base: int
+                ) -> torch.Tensor:
+    """``index`` where ``keep``, else a spare slot of the row's own,
+    ``base + row``: a scatter into ``base + len(index)`` slots then never
+    makes the left-out rows (a batch's padding, a merge's invalid rows —
+    often most of them) contend for one address."""
+    rows = torch.arange(index.shape[0], device=index.device)
+    return torch.where(keep, index, base + rows)
+
+
+def mode_top2(values: torch.Tensor, runs: torch.Tensor,
+              weights: torch.Tensor, seg: torch.Tensor, valid: torch.Tensor,
+              n_out: int):
+    """The two best (value, total) runs of each segment of rows sorted by
+    (segment, value).  ``runs`` flags the first valid row of every
+    (segment, value) run, ``weights`` adds up over the ``valid`` rows of a
+    run and ``seg`` is each row's segment id.
+
+    Best means the largest total, ties to the smallest value: a segment
+    max, then a second max with each segment's winning run masked out.
+    Returns ``(v1, c1, v2, c2, run_total)``: int64 ``(n_out,)`` per segment
+    (``v2 = c2 = 0`` where the segment holds one run; all four 0 for an
+    id that never occurs) and, per row, its run's total."""
+    n = values.shape[0]
+    dev = values.device
+    run_id = torch.cumsum(runs.to(torch.int64), 0) - 1
+    rid = spare_slots(run_id, valid, n)
+    tot = torch.zeros(2 * n, dtype=torch.int64, device=dev)
+    tot.index_add_(0, rid, torch.where(valid, weights.to(torch.int64),
+                                       torch.zeros_like(rid)))
+    # each run's segment and value, written from its first row; run ids
+    # past the last run keep a spare segment of their own
+    at = spare_slots(run_id, runs, n)
+    spare = n_out + torch.arange(2 * n, device=dev)
+    run_seg = spare.clone().scatter_(0, at, seg.to(torch.int64))
+    run_val = torch.zeros(2 * n, dtype=torch.int64, device=dev)
+    run_val.scatter_(0, at, values.to(torch.int64))
+    run_seg, run_val, run_tot = run_seg[:n], run_val[:n], tot[:n]
+    big = torch.iinfo(torch.int64).max
+
+    def best(total):
+        """Per segment (largest total, smallest value at it), and each
+        run's flag of being that winner; a run with a negative total never
+        wins."""
+        c = torch.full((n_out + n,), -1, dtype=torch.int64, device=dev)
+        c.scatter_reduce_(0, run_seg, total, "amax", include_self=True)
+        at_best = (total >= 0) & (total == c[run_seg])
+        v = torch.full((n_out + n,), big, dtype=torch.int64, device=dev)
+        v.scatter_reduce_(0, spare_slots(run_seg, at_best, n_out), run_val,
+                          "amin", include_self=True)
+        win = at_best & (run_val == v[run_seg])
+        c, v = c[:n_out], v[:n_out]
+        has = c >= 0
+        return (torch.where(has, v, torch.zeros_like(v)),
+                torch.clamp(c, min=0), win)
+
+    v1, c1, win1 = best(run_tot)
+    v2, c2, _ = best(torch.where(win1, torch.full_like(run_tot, -1),
+                                 run_tot))
+    v2 = torch.where(c2 > 0, v2, torch.zeros_like(v2))
+    return v1, c1, v2, c2, tot[rid]
+
+
+def run_table(keys: List[torch.Tensor], values: torch.Tensor,
+              totals: torch.Tensor, keep: torch.Tensor, cap: int,
+              compact=compact_columns) -> Dict:
+    """The run table of the rows ``keep`` flags (one row per (voxel,
+    value) run): their keys, values and totals compacted to the front by
+    ``compact`` (``compact_columns``: the compaction kernel on the GPU),
+    ``cap`` rows (cut or padded), rows past the run count holding the
+    invalid key and zeros."""
+    nk = len(keys)
+    cols, nruns = compact(
+        list(keys) + [values.to(torch.int32), totals.to(torch.int32)], keep)
+    dev = values.device
+    rn = cols[0].shape[0]
+    rvalid = torch.arange(rn, dtype=torch.int32, device=dev) < nruns
+
+    def fit(c: torch.Tensor, pad) -> torch.Tensor:
+        c = torch.where(rvalid, c, torch.full((), pad, dtype=c.dtype,
+                                              device=dev))
+        if cap <= rn:
+            return c[:cap]
+        return torch.cat([c, torch.full((cap - rn,), pad, dtype=c.dtype,
+                                        device=dev)])
+
+    return {"keys": tuple(fit(k, _INVALID_KEY) for k in cols[:nk]),
+            "values": fit(cols[nk], 0), "counts": fit(cols[nk + 1], 0),
+            "num_runs": nruns}

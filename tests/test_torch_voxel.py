@@ -154,10 +154,12 @@ def test_voxel_downsample_argument_errors(rng):
     with pytest.raises(ValueError, match="waveform"):
         jvoxel.voxel_downsample(
             jb.with_column(wf, jnp.zeros(n, jnp.uint32)), 1.0)
-    # later slices
+    # with the merge statistics (ported with the file -> map slice) the
+    # call returns a (batch, aux) pair
     for kw in (dict(with_aux=True), dict(with_aux=True, mode_runs=True)):
-        with pytest.raises(NotImplementedError, match="slice"):
-            voxel_downsample(pb, 1.0, **kw)
+        out, aux = voxel_downsample(pb, 1.0, **kw)
+        assert int(out.count) == int((aux["counts"] > 0).sum()) > 0
+        assert ("mode_runs" in aux) == ("mode_runs" in kw)
     # the quantized and the exact-f32 precomputed paths no longer refuse
     for kw in (dict(position_quantization_bits=10),
                dict(precomputed=(keys, None), grid_bits=10,
