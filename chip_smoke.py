@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of pasture_tpu_torch: the transform + voxelize steps, the
-filter -> voxel grid path, normals, registration and the file -> map fold.
+filter -> voxel grid path, normals, registration, the file -> map fold,
+the other formats, RANSAC, the convex hull and reprojection.
 
 Run ``python3 chip_smoke.py`` on a machine with one NVIDIA Hopper GPU and
 the CUDA toolkit.  It
@@ -73,12 +74,36 @@ the CUDA toolkit.  It
    read, upload, the fold's time (median of 2), device busy, K4 / K5
    launches a chunk and the fold's host syncs; K4 and K5 are held against
    their plain versions on the inputs the fold gave them.
+9. drives the rest of the single-card surface, each phase gated before it
+   is timed:
+   ``path_formats`` — the survey with colours and normals written as
+   ``.pnts`` with ``rtc_center``, with quantized positions and with oct16p
+   normals, and 262 144 of its points as ASCII; each read back by the
+   package's readers and onto the card by ``read_batch`` and held to what
+   was written; ``convert`` (ASCII -> LAS -> ``.pnts``) and ``info
+   --detailed`` against numpy's min/max; then the ``.pnts`` fold gated as
+   the LAS fold is, K4 and K5 counted and held against their plain
+   versions on its inputs; write, read and fold rates;
+   ``path_segmentation`` — ``ransac_plane_device`` (4 194 304 points, 1024
+   hypotheses) and ``ransac_line_device`` (1 048 576, 256): every
+   hypothesis's count and the winner's inliers against an f64 recount of
+   the same inputs on the card, but for points within the f32 rounding
+   bound of the threshold; 90 % of the scene's own points; a second call
+   equal; the card against the CPU at 65 536 points; call time, device
+   busy and peak memory;
+   ``path_hull`` — both hull calls at 1 000, 10 000 and 100 000 points
+   (the largest a batch on the card) against qhull's vertices, the inside
+   oracle and Euler's formula; seconds;
+   ``path_reproject`` — a UTM 32N tile of 4 194 304 points (an f64 batch
+   on the card) to WGS 84 and back with the builtin engine: the golden
+   cases, the round trip within 10 µm, the column still on the card, and
+   ``libproj`` within 1e-4 m where it loads; rates and the copies' share.
 
 The ``kernels`` phase also holds K6 against its plain version at the
 normals path's shape and at the point-to-plane ICP's.  ``--profile`` adds
 a ``call_split`` line (the device operations of one K1, one K3 and one K5
-call) and a ``profile`` line per path: one step's GPU time by kernel
-name.
+call) and a ``profile`` line per path (``path_segmentation``'s plane
+included): one step's GPU time by kernel name.
 
 Each phase prints one JSON line.  Nothing is caught: any failure raises and
 the process exits non-zero.  Without a CUDA device it raises at once; it
@@ -88,7 +113,9 @@ never carries on on the CPU.  The last line is
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import io
 import json
 import shutil
 import subprocess
@@ -101,12 +128,18 @@ import numpy as np
 import torch
 
 from pasture_tpu_torch import algorithms
-from pasture_tpu_torch._device import resolve_device
+from pasture_tpu_torch._device import fp32_matmul, resolve_device
+from pasture_tpu_torch.algorithms import convexhull as hull_mod
+from pasture_tpu_torch.algorithms import reprojection as reproj_mod
+from pasture_tpu_torch.algorithms import segmentation as seg
 from pasture_tpu_torch.algorithms import normals as normals_mod
 from pasture_tpu_torch.buffers.device import PointBatch
 from pasture_tpu_torch.buffers.host import HostPointBuffer
-from pasture_tpu_torch.io import open_reader, read_all, write_all
+from pasture_tpu_torch.io import (AsciiReader, AsciiWriter, PntsReader,
+                                  PntsWriter, open_reader, read_all,
+                                  read_batch, write_all)
 from pasture_tpu_torch.io import streaming
+from pasture_tpu_torch.io.tiles3d.pnts import oct16p_decode, oct16p_encode
 from pasture_tpu_torch.layout import attributes as att
 from pasture_tpu_torch.layout import dtypes as dt
 from pasture_tpu_torch.layout.schema import PointSchema
@@ -123,10 +156,13 @@ from pasture_tpu_torch.ops.kernels import tile_sort_kernel as ts
 from pasture_tpu_torch.ops.kernels import voxel_reduce_kernel as vr
 from pasture_tpu_torch.ops.kernels import window_fit_kernel as wf
 from pasture_tpu_torch.native import laszip
+from pasture_tpu_torch.native import proj as native_proj
 from pasture_tpu_torch.ops.compact import compact_columns
 from pasture_tpu_torch.pipeline import RegistrationPipeline
 from pasture_tpu_torch.registration import icp, optimize_pose_graph, so3_exp
 from pasture_tpu_torch.registration.pose_graph import edge_residuals
+from pasture_tpu_torch.tools import convert as convert_tool
+from pasture_tpu_torch.tools import info as info_tool
 
 # the modules (the package's ``voxel_downsample`` and
 # ``merge_voxel_batches`` are the functions)
@@ -194,6 +230,34 @@ FILE_TILE = 512
 FILE_DIR = "_file_to_map"     # under the checkout; removed after the phase
 SURVEY_SCHEMA = PointSchema.from_attributes(
     [att.POSITION_3D, att.INTENSITY, att.CLASSIFICATION])
+
+# the format paths: make_survey's scene with colours and surface normals,
+# written as .pnts three ways and (a part of it) as ASCII text
+FORMATS_N = 1 << 22
+FORMATS_ASCII_N = 1 << 18
+FORMATS_ASCII = "xyzicRGB"
+FORMATS_DIR = "_formats"      # under the checkout; removed after the phase
+FORMATS_SCHEMA = PointSchema.from_attributes(
+    [att.POSITION_3D, att.INTENSITY, att.CLASSIFICATION,
+     att.COLOR_RGB.with_dtype(dt.VEC3U8), att.NORMAL])
+OCT16P_MAX_DEG = 2.0          # the oct16p bound of tests/test_ascii_tiles3d.py
+# RANSAC: an airborne tile's ground plane and a power line, threshold and
+# hypotheses as a user would ask for them; the CPU cross-check's size
+SEG_PLANE_N = 1 << 22
+SEG_LINE_N = 1 << 20
+SEG_THRESHOLD = 0.05
+SEG_PLANE_ITERS = 1024
+SEG_LINE_ITERS = 256
+SEG_CROSS_N = 1 << 16
+SEG_BAND = 1e-5               # of the threshold: points this near it counted
+EPS32 = 2.0 ** -24            # float32's unit roundoff
+# convex hull: benches/host_benches.py's uniform cubes
+HULL_SIZES = (1_000, 10_000, 100_000)
+# reprojection: a survey tile in ETRS89 / UTM 32N to WGS 84 and back
+REPROJ_N = 1 << 22
+REPROJ_SRC, REPROJ_DST = "EPSG:25832", "EPSG:4326"
+GOLDEN = Path(__file__).resolve().parent / "tests" / "golden" / \
+    "reprojection_golden.json"
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate
 # and the float32 rate outside the tensor cores, which is also what the
@@ -653,9 +717,15 @@ def file_fold(path, device=None, **kw):
         schema=SURVEY_SCHEMA, device=device, **kw)
 
 
-def header_min(path) -> np.ndarray:
+def header_min(path, device=None) -> np.ndarray:
+    """The fold's grid anchor: the minimum of the header's bounds or,
+    where the format's header holds none (``.pnts``), of the streamed
+    bounds, as ``streaming_voxel_downsample`` takes them."""
     with open_reader(path) as r:
-        return np.asarray(r.get_metadata().bounds().min, np.float32)
+        bounds = r.get_metadata().bounds()
+    if bounds is None:
+        bounds = streaming.streaming_bounds(path, FILE_CHUNK, device=device)
+    return np.asarray(bounds.min, np.float32)
 
 
 def one_shot(path, device=None):
@@ -664,7 +734,7 @@ def one_shot(path, device=None):
     statistics (keys, counts); returns ``((batch, aux), f64 positions)``."""
     buf = read_all(path, SURVEY_SCHEMA)
     batch = PointBatch.from_host(buf, device=device)
-    bmin = torch.from_numpy(header_min(path)).to(batch.device)
+    bmin = torch.from_numpy(header_min(path, batch.device)).to(batch.device)
     return voxel_downsample(batch, LEAF, bounds=(bmin, None),
                             semantics="floor", grid_bits=10, with_aux=True,
                             fused=False), buf.get(POS)
@@ -734,7 +804,7 @@ def gate_file_to_map(path, device=None) -> dict:
                  if bool(rt["input_truncated"].item())]
     if truncated:
         raise AssertionError(f"file -> map: truncated run tables {truncated}")
-    okeys, omeans = survey_oracle(pos64, header_min(path))
+    okeys, omeans = survey_oracle(pos64, header_min(path, device))
     if not np.array_equal(okeys, fa["keys"][0][:nv].cpu().numpy()):
         raise AssertionError("file -> map: cell keys differ from the f64 "
                              "oracle's")
@@ -2370,9 +2440,11 @@ def counted_fold(path, device=None):
     return out, counts, syncs, captured
 
 
-def file_to_map_rows(rows: list, captured: dict) -> None:
-    """K4 and K5 held against their plain versions on the inputs this path
-    gave them, timed, and added as rows of the ``path_file_to_map`` run."""
+def file_to_map_rows(rows: list, captured: dict,
+                     path: str = "path_file_to_map") -> None:
+    """K4 and K5 held against their plain versions on the inputs a fold
+    gave them, timed, and added as rows of ``path``'s run."""
+    tag = path.removeprefix("path_")
     dev = captured["compact"][1].device
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     streams, tile_len, num_keys = captured["tile_sort"]
@@ -2389,7 +2461,7 @@ def file_to_map_rows(rows: list, captured: dict) -> None:
 
     stages = (tile_len.bit_length() - 1) * tile_len.bit_length() // 2
     k = len(streams)
-    add_row(rows, "tile_sort_file_to_map", _CSRC + "tile_sort.cu",
+    add_row(rows, f"tile_sort_{tag}", _CSRC + "tile_sort.cu",
             _TPU + "tile_sort_kernel.py:132", dkey,
             gpu_ms(lambda: kernels.tile_sort(streams, tile_len,
                                              num_keys=num_keys), flush),
@@ -2401,7 +2473,7 @@ def file_to_map_rows(rows: list, captured: dict) -> None:
             # a stream
             8.0 * k * n, (4.0 + 2 * k) * stages * (n // 2),
             library_ms=gpu_ms(library_sort, flush, reps=5),
-            path="path_file_to_map", counter="tile_sort")
+            path=path, counter="tile_sort")
 
     cols, keep = captured["compact"]
     m = keep.shape[0]
@@ -2411,10 +2483,10 @@ def file_to_map_rows(rows: list, captured: dict) -> None:
     kept = int(gcount.item())
     if kept != int(wcount.item()) or not all(
             torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError("blockwise_compact on the file -> map merge's "
-                             "keys differs from its plain version")
+        raise AssertionError(f"blockwise_compact on the {path} merge's "
+                             f"keys differs from its plain version")
     row_bytes = sum(c.numel() // m * c.element_size() for c in cols)
-    add_row(rows, "blockwise_compact_file_to_map", _CSRC + "compact.cu",
+    add_row(rows, f"blockwise_compact_{tag}", _CSRC + "compact.cu",
             _TPU + "compact_kernel.py:135", 0.0,
             gpu_ms(lambda: ck.blockwise_compact(cols, keep), flush),
             gpu_ms(lambda: ck.blockwise_compact_plain(cols, keep), flush,
@@ -2425,7 +2497,7 @@ def file_to_map_rows(rows: list, captured: dict) -> None:
             m + 2.0 * row_bytes * m, 12.0 * m + row_bytes / 4.0 * kept,
             library_ms=gpu_ms(lambda: [c[keep] for c in cols], flush,
                               reps=5),
-            path="path_file_to_map", counter="blockwise_compact")
+            path=path, counter="blockwise_compact")
 
 
 def timed_folds(path, device, points: int, reps: int = 2) -> dict:
@@ -2516,6 +2588,668 @@ def report(path, points: int, dev, smi: str, head: dict, out, counts,
         "card": smi}), flush=True)
 
 
+# ---- the format paths: 3D Tiles .pnts and ASCII --------------------------------
+
+def formats_survey(n: int = FORMATS_N, seed: int = 11) -> HostPointBuffer:
+    """:func:`make_survey`'s scene with an 8-bit colour per point and the
+    terrain's analytic unit normal."""
+    base = make_survey(n, seed)
+    pos = base.get(POS)
+    rng = np.random.default_rng(seed + 100)
+    grad = np.stack([0.08 * np.cos(pos[:, 0] * 0.02),
+                     -0.051 * np.sin(pos[:, 1] * 0.017)], axis=1)
+    nrm = np.concatenate([-grad, np.ones((n, 1))], axis=1)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return HostPointBuffer.from_columns(FORMATS_SCHEMA, {
+        POS: pos, INT: base.get(INT), CLS: base.get(CLS),
+        att.COLOR_RGB.name: rng.integers(0, 256, (n, 3)).astype(np.uint8),
+        att.NORMAL.name: nrm.astype(np.float32)})
+
+
+def pnts_forms(buf: HostPointBuffer) -> dict:
+    """The writer options of the three ``.pnts`` files: plain positions
+    relative to the scene's centre, quantized positions, oct16p normals."""
+    pos = buf.get(POS)
+    centre = np.round((pos.min(0) + pos.max(0)) / 2.0, 3)
+    return {"rtc": {"rtc_center": centre},
+            "quantized": {"quantize_positions": True},
+            "oct16p": {"compress_normals": True}}
+
+
+def check_pnts(form: str, kw: dict, buf: HostPointBuffer,
+               back: HostPointBuffer) -> dict:
+    """A ``.pnts`` file read back against what was written: colours equal;
+    positions equal to the writer's f32 arithmetic (``rtc``) or within half
+    a quantization step and the f32 rounding (``quantized``); normals equal
+    (f32) or equal to the oct16p round trip and within OCT16P_MAX_DEG."""
+    what = f"path_formats (.pnts, {form})"
+    if sorted(back.schema.names) != sorted((POS, att.COLOR_RGB.name,
+                                           att.NORMAL.name)) \
+            or len(back) != len(buf):
+        raise AssertionError(f"{what}: read back {back.schema.names} x "
+                             f"{len(back)}")
+    if not np.array_equal(back.get(att.COLOR_RGB.name),
+                          buf.get(att.COLOR_RGB.name)):
+        raise AssertionError(f"{what}: colours differ")
+    pos32 = buf.get(POS).astype(np.float32)
+    got = back.get(POS)
+    out = {}
+    if "rtc_center" in kw:
+        rtc = np.asarray(kw["rtc_center"], np.float64)
+        want = ((pos32.astype(np.float64) - rtc).astype(np.float32)
+                .astype(np.float64) + rtc).astype(np.float32)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{what}: positions differ from the "
+                                 f"writer's f32 arithmetic")
+        out["max_position_err_m"] = float(np.abs(
+            got.astype(np.float64) - buf.get(POS)).max())
+    elif kw.get("quantize_positions"):
+        step = (pos32.max(0).astype(np.float64)
+                - pos32.min(0).astype(np.float64)) / 65535.0
+        err = np.abs(got.astype(np.float64) - pos32.astype(np.float64))
+        limit = step / 2.0 + 2.0 * EPS32 * np.abs(pos32).max(0)
+        if not (err <= limit).all():
+            raise AssertionError(f"{what}: a position is {err.max()} m off, "
+                                 f"beyond half a step {step / 2}")
+        out.update(max_position_err_m=err.max(0).tolist(),
+                   quantization_step_m=step.tolist())
+    else:
+        if not np.array_equal(got, pos32):
+            raise AssertionError(f"{what}: positions differ")
+    nrm = buf.get(att.NORMAL.name)
+    if kw.get("compress_normals"):
+        want = oct16p_decode(oct16p_encode(nrm.astype(np.float64)))
+        cos = np.clip(np.sum(back.get(att.NORMAL.name).astype(np.float64)
+                             * nrm, axis=1), -1.0, 1.0)
+        deg = float(np.degrees(np.arccos(cos.min())))
+        if not np.array_equal(back.get(att.NORMAL.name), want) \
+                or not deg < OCT16P_MAX_DEG:
+            raise AssertionError(f"{what}: normals off by {deg} degrees")
+        out["max_normal_err_deg"] = deg
+    elif not np.array_equal(back.get(att.NORMAL.name), nrm):
+        raise AssertionError(f"{what}: normals differ")
+    return out
+
+
+def check_ascii(buf: HostPointBuffer, back: HostPointBuffer) -> float:
+    """ASCII read back: Intensity, Classification and colours equal,
+    positions within half of the writer's last printed digit (5 decimals).
+    Returns the largest position error."""
+    if len(back) != len(buf):
+        raise AssertionError(f"path_formats (ascii): {len(back)} rows")
+    for name in (INT, CLS, att.COLOR_RGB.name):
+        if not np.array_equal(back.get(name).astype(np.int64),
+                              buf.get(name).astype(np.int64)):
+            raise AssertionError(f"path_formats (ascii): {name} differs")
+    err = float(np.abs(back.get(POS) - buf.get(POS)).max())
+    if not err <= 0.5e-5 + 1e-12 * np.abs(buf.get(POS)).max():
+        raise AssertionError(f"path_formats (ascii): a position is {err} "
+                             f"off")
+    return err
+
+
+def check_batch(what: str, batch: PointBatch, host: HostPointBuffer) -> None:
+    """A batch read onto the device holds the host read's columns (64-bit
+    columns narrowed as the batch's policy says)."""
+    back = batch.to_host()
+    for name in host.schema.names:
+        want = host.get(name)
+        got = back.get(name)
+        if got.dtype.kind == "f":
+            want = want.astype(batch.logical_dtype(name)).astype(got.dtype)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{what}: the batch's {name} differs from "
+                                 f"the host read")
+
+
+def tool_lines(main, argv: list) -> list:
+    """Run a tool's ``main`` and return its standard output's lines."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit code {rc}")
+    return out.getvalue().splitlines()
+
+
+def check_info(path) -> int:
+    """``info --detailed`` of ``path``: its min/max line of every scalar and
+    vector attribute equals numpy's min/max of the file's column.  Returns
+    the number of lines checked."""
+    lines = tool_lines(info_tool.main, [str(path), "--detailed"])
+    stats = lines[lines.index("Attribute statistics:") + 1:]
+    with open_reader(path) as r:
+        buf = r.read_all()
+    want = []
+    for m in buf.schema.members:
+        if m.dtype.kind in ("bytes", "custom"):
+            continue
+        col = buf.get(m.name)
+        want.append(f"  {m.name:32s} min={col.min(0).tolist()} "
+                    f"max={col.max(0).tolist()}")
+    if stats[:len(want)] != want:
+        raise AssertionError(f"info --detailed {path}: {stats} != {want}")
+    return len(want)
+
+
+def gate_formats(work: Path, buf: HostPointBuffer, device=None) -> dict:
+    """Write the scene as the three ``.pnts`` forms and a part of it as
+    ASCII, read each back with the package's readers and with
+    ``read_batch`` onto ``device``, convert (ASCII -> LAS -> ``.pnts``) and
+    ``info --detailed`` the results; every check passed, returns the write
+    and read seconds of each form and the paths written."""
+    n = len(buf)
+    out = {"forms": {}}
+    for form, kw in pnts_forms(buf).items():
+        path = work / f"scene_{form}.pnts"
+        t0 = time.perf_counter()
+        with PntsWriter(path, buf.schema, **kw) as w:
+            w.write(buf)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = PntsReader(path).read_all()
+        read_s = time.perf_counter() - t0
+        res = check_pnts(form, kw, buf, back)
+        check_batch(f"path_formats (.pnts, {form})",
+                    read_batch(path, device=device), back)
+        out["forms"][form] = {"bytes": path.stat().st_size, "write_s": write_s,
+                              "write_mpoints_per_s": n / write_s / 1e6,
+                              "read_s": read_s,
+                              "read_mpoints_per_s": n / read_s / 1e6, **res}
+        out.setdefault("paths", {})[form] = path
+    m = min(FORMATS_ASCII_N, n)
+    part = buf.slice(0, m)
+    txt = work / "scene.txt"
+    t0 = time.perf_counter()
+    with AsciiWriter(txt, FORMATS_ASCII) as w:
+        w.write(part)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with AsciiReader(txt, FORMATS_ASCII) as r:
+        back = r.read_all()
+    read_s = time.perf_counter() - t0
+    err = check_ascii(part, back)
+    check_batch("path_formats (ascii)",
+                PointBatch.from_host(back, device=device), back)
+    out["forms"]["ascii"] = {
+        "points": m, "format": FORMATS_ASCII, "bytes": txt.stat().st_size,
+        "write_s": write_s, "write_mpoints_per_s": m / write_s / 1e6,
+        "read_s": read_s, "read_mpoints_per_s": m / read_s / 1e6,
+        "max_position_err_m": err}
+    las, pnts = work / "from_ascii.las", work / "from_las.pnts"
+    tool_lines(convert_tool.main, [str(txt), str(las), "--ascii-format",
+                                   FORMATS_ASCII])
+    tool_lines(convert_tool.main, [str(las), str(pnts)])
+    if len(read_all(las)) != m or len(read_all(pnts)) != m:
+        raise AssertionError("path_formats: convert lost points")
+    out["info_lines_checked"] = check_info(las) + check_info(pnts)
+    return out
+
+
+def phase_path_formats(rows: list, smi: str, device=None) -> None:
+    """What a user does to turn a 3D Tiles or text export into a map: the
+    survey of ``path_file_to_map`` (FORMATS_N points, colours and normals
+    added) written as ``.pnts`` with ``rtc_center``, with quantized
+    positions and with oct16p normals, and FORMATS_ASCII_N of its points as
+    ASCII; each read back and onto the card and checked
+    (:func:`gate_formats`), converted and described by the tools.  Then the
+    plain ``.pnts`` file folded to a map by ``streaming_voxel_downsample``
+    and gated against a one-shot voxelization as ``path_file_to_map`` is
+    (its Intensity and Classification, which ``.pnts`` does not hold, read
+    as zeros); K4 and K5 counted on the fold, held against their plain
+    versions on its inputs, and the fold timed with ingest."""
+    dev = resolve_device(device)
+    work = Path(__file__).resolve().parent / FORMATS_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    try:
+        t0 = time.perf_counter()
+        scene = formats_survey()
+        t1 = time.perf_counter()
+        gate = gate_formats(work, scene, dev)
+        path = gate.pop("paths")["rtc"]
+        t2 = time.perf_counter()
+        fold_gate = gate_file_to_map(path, dev)
+        t3 = time.perf_counter()
+        out, counts, syncs, captured = counted_fold(path, dev)
+        file_to_map_rows(rows, captured, "path_formats")
+        del captured
+        read_launches(rows, "path_formats", counts)
+        chunks = -(-FORMATS_N // FILE_CHUNK)
+        folds = timed_folds(path, dev, FORMATS_N)
+        print(json.dumps({
+            "phase": "path_formats", "points": FORMATS_N, **gate,
+            "fold_file": path.name, "fold": fold_gate, **folds,
+            "launches": counts,
+            "tile_sort_per_chunk": counts["tile_sort"] / chunks,
+            "blockwise_compact_per_chunk":
+                counts["blockwise_compact"] / chunks,
+            "fold_host_syncs": syncs, "voxels_counted_run":
+                int(out.count.item()),
+            "scene_s": t1 - t0, "formats_gate_s": t2 - t1,
+            "fold_gate_s": t3 - t2, "phase_s": time.perf_counter() - t0,
+            "card": smi}), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---- RANSAC segmentation ---------------------------------------------------------
+
+def plane_scene(n: int = SEG_PLANE_N, seed: int = 31):
+    """An airborne tile: 80 % of the points on the ground plane z = 0.05 x
+    - 0.03 y + 12 over a 200 m square, within 0.01 m of it along its
+    normal; 20 % clutter (vegetation, roofs) 0.5-30 m above it; shuffled.
+    Returns (f32 positions, the ground's mask)."""
+    rng = np.random.default_rng(seed)
+    k = n * 4 // 5
+    xy = rng.uniform(-100.0, 100.0, (n, 2))
+    z = 0.05 * xy[:, 0] - 0.03 * xy[:, 1] + 12.0
+    z[k:] += rng.uniform(0.5, 30.0, n - k)
+    pos = np.concatenate([xy, z[:, None]], axis=1)
+    unit = np.asarray([-0.05, 0.03, 1.0]) / np.linalg.norm([-0.05, 0.03, 1])
+    pos[:k] += rng.uniform(-0.01, 0.01, (k, 1)) * unit
+    order = rng.permutation(n)
+    return pos[order].astype(np.float32), order < k
+
+
+def wire_scene(n: int = SEG_LINE_N, seed: int = 32):
+    """A power line: 40 % of the points within 0.01 m a coordinate of a
+    150 m straight span from (-75, -10, 15) to (75, 10, 20); 60 % clutter in
+    the 150 x 40 x 30 m box around it; shuffled.  Returns (f32 positions,
+    the wire's mask)."""
+    rng = np.random.default_rng(seed)
+    k = n * 2 // 5
+    a, b = np.asarray([-75.0, -10.0, 15.0]), np.asarray([75.0, 10.0, 20.0])
+    t = rng.uniform(0.0, 1.0, (k, 1))
+    wire = a + t * (b - a) + rng.uniform(-0.01, 0.01, (k, 3))
+    clutter = rng.uniform([-75.0, -20.0, 0.0], [75.0, 20.0, 30.0],
+                          (n - k, 3))
+    pos = np.concatenate([wire, clutter])
+    order = rng.permutation(n)
+    return pos[order].astype(np.float32), order < k
+
+
+def f32_bound(pos: torch.Tensor, samples: torch.Tensor, k: int,
+              dist: torch.Tensor) -> torch.Tensor:
+    """(c, P) bound on how far the scorer's float32 distance of each point
+    to each hypothesis can lie from the f64 one of the same inputs, by
+    rounding analysis with a factor of 2 to spare (ε = EPS32, r = |p - s0|):
+    a plane ε (32 r / sin θ + 8 (|p| + |s0|) + 8 d), θ the angle of its
+    triangle at s0, since the edge vectors and their cross product round
+    with the points' magnitude and ``p·n + d`` cancels; a line ε (32 r +
+    8 d)."""
+    s0 = samples[:, 0]
+    r = torch.linalg.vector_norm(pos[None] - s0[:, None], dim=-1)
+    if k == 3:
+        u, v = samples[:, 1] - s0, samples[:, 2] - s0
+        sin = (torch.linalg.vector_norm(torch.linalg.cross(u, v), dim=-1)
+               / (torch.linalg.vector_norm(u, dim=-1)
+                  * torch.linalg.vector_norm(v, dim=-1))).clamp_min(1e-300)
+        size = (torch.linalg.vector_norm(pos, dim=-1)[None]
+                + torch.linalg.vector_norm(s0, dim=-1)[:, None])
+        return EPS32 * (32.0 * r / sin[:, None] + 8.0 * size + 8.0 * dist)
+    return EPS32 * (32.0 * r + 8.0 * dist)
+
+
+def recount(pos: torch.Tensor, mask: torch.Tensor, samples: torch.Tensor,
+            k: int, threshold: float) -> dict:
+    """The f64 recount of every hypothesis on the device: per hypothesis
+    its inlier count, its points within :func:`f32_bound` of the threshold
+    and its points within SEG_BAND x threshold, from f64 distances of the
+    same f32 inputs."""
+    pos64, s64 = pos.double(), samples.double()
+    rows = 1 << 15
+    out = {key: torch.zeros(samples.shape[0], dtype=torch.int64,
+                            device=pos.device)
+           for key in ("count", "near", "band")}
+    for h in range(0, s64.shape[0], seg._HYPO_CHUNK):
+        s = s64[h:h + seg._HYPO_CHUNK]
+        for p in range(0, pos64.shape[0], rows):
+            pp, m = pos64[p:p + rows], mask[None, p:p + rows]
+            d = seg._hypothesis_distances(pp, s, k)
+            off = (d - threshold).abs()
+            sl = slice(h, h + s.shape[0])
+            out["count"][sl] += ((d < threshold) & m).sum(1)
+            out["near"][sl] += ((off <= f32_bound(pp, s, k, d)) & m).sum(1)
+            out["band"][sl] += ((off <= SEG_BAND * threshold) & m).sum(1)
+    return out
+
+
+def check_counts(what: str, counts: torch.Tensor, ref: dict,
+                 other: torch.Tensor = None) -> dict:
+    """Each hypothesis's count equals the f64 recount's (or ``other``'s)
+    but for its points within the f32 bound of the threshold; returns the
+    readings, with how many hypotheses differ by more than their points
+    within SEG_BAND x threshold."""
+    want = ref["count"] if other is None else other
+    diff = (counts - want).abs()
+    if bool((diff > ref["near"]).any()):
+        h = int((diff - ref["near"]).argmax().item())
+        raise AssertionError(f"{what}: hypothesis {h} counts {int(counts[h])}"
+                             f", against {int(want[h])} with "
+                             f"{int(ref['near'][h])} points near the "
+                             f"threshold")
+    return {"hypotheses": int(counts.shape[0]),
+            "max_count_diff": int(diff.max().item()),
+            "points_near_threshold_f32": int(ref["near"].sum().item()),
+            "points_in_band": int(ref["band"].sum().item()),
+            "hypotheses_off_by_more_than_band":
+                int((diff > ref["band"]).sum().item())}
+
+
+def seg_hypotheses(batch: PointBatch, k: int, iters: int, seed: int):
+    """The hypotheses the public call draws: ``_sample_indices`` over the
+    first ``max(count, k)`` rows, iterations rounded up to 128s."""
+    n = max(int(batch.count.item()), k)
+    rounded = -(-iters // seg._HYPO_CHUNK) * seg._HYPO_CHUNK
+    idx = seg._sample_indices(seed, rounded, n, k).to(batch.device)
+    return batch.data[POS][idx]
+
+
+def ransac(batch, k: int, iters: int, seed: int):
+    fn = seg.ransac_plane_device if k == 3 else seg.ransac_line_device
+    return fn(batch, SEG_THRESHOLD, iters, seed=seed)
+
+
+def geometry(model) -> tuple:
+    """A RANSAC model's plane coefficients or line points, not its count."""
+    if isinstance(model, seg.Plane):
+        return (model.a, model.b, model.c, model.d)
+    return tuple(model.first) + tuple(model.second)
+
+
+def gate_segmentation(pos: np.ndarray, own: np.ndarray, k: int, iters: int,
+                      seed: int, device=None) -> dict:
+    """The public call on a batch on ``device``, gated: every hypothesis's
+    count and the winner's inlier set equal to their f64 recount but for
+    points within the f32 bound of the threshold; the winner is the first
+    maximum of those counts and holds 90 % of the scene's own points; a
+    second call gives the same result."""
+    what = f"path_segmentation ({'plane' if k == 3 else 'line'})"
+    batch = PointBatch.from_host(positions_buffer(pos), device=device)
+    model, inliers = ransac(batch, k, iters, seed)
+    samples = seg_hypotheses(batch, k, iters, seed)
+    mask = batch.valid_mask()
+    with fp32_matmul():
+        counts = seg._score_hypotheses(batch.data[POS], mask, samples, k,
+                                       SEG_THRESHOLD)
+    ref = recount(batch.data[POS], mask, samples, k, SEG_THRESHOLD)
+    res = check_counts(what, counts, ref)
+    best = int(counts.argmax().item())
+    if model.ranking != int(counts[best]):
+        raise AssertionError(f"{what}: the winner ranks {model.ranking}, "
+                             f"the first maximum counts {int(counts[best])}")
+    win = samples[best:best + 1].double()
+    d = seg._hypothesis_distances(batch.data[POS].double(), win, k)
+    near = ((d - SEG_THRESHOLD).abs() <= f32_bound(
+        batch.data[POS].double(), win, k, d))[0]
+    got = torch.zeros_like(mask)
+    got[torch.from_numpy(inliers).to(mask.device)] = True
+    differ = got != ((d[0] < SEG_THRESHOLD) & mask)
+    if bool((differ & ~near).any()):
+        raise AssertionError(f"{what}: the winner's inliers differ from "
+                             f"their f64 recount off the threshold")
+    held = float(own[inliers].sum() / own.sum())
+    if not held >= 0.9:
+        raise AssertionError(f"{what}: the winner holds {held} of the "
+                             f"scene's own points")
+    again = ransac(batch, k, iters, seed)
+    if geometry(again[0]) != geometry(model) \
+            or again[0].ranking != model.ranking \
+            or not np.array_equal(again[1], inliers):
+        raise AssertionError(f"{what}: a second call differs")
+    return {"points": len(pos), "iterations": iters,
+            "scored_hypotheses": int(samples.shape[0]), **res,
+            "ranking": model.ranking, "share_of_own_points": held,
+            "winner_inliers_differing_from_f64": int(differ.sum().item()),
+            "same_on_second_call": True, "batch": batch}
+
+
+def cross_check_cpu(pos: np.ndarray, k: int, iters: int, seed: int,
+                    device) -> dict:
+    """SEG_CROSS_N points on the card and on the CPU: the same hypotheses,
+    counts equal but for points within the f32 bound of the threshold (of
+    either result), and the same winner unless the two winners' counts lie
+    within those points of each other, which is then printed."""
+    what = f"path_segmentation ({'plane' if k == 3 else 'line'}, cpu)"
+    host = positions_buffer(pos[:SEG_CROSS_N])
+    on = {d: PointBatch.from_host(host, device=d) for d in (device, "cpu")}
+    samples = {d: seg_hypotheses(b, k, iters, seed) for d, b in on.items()}
+    if not torch.equal(samples[device].cpu(), samples["cpu"]):
+        raise AssertionError(f"{what}: the hypotheses differ")
+    counts = {}
+    with fp32_matmul():
+        for d, b in on.items():
+            counts[d] = seg._score_hypotheses(b.data[POS], b.valid_mask(),
+                                              samples[d], k,
+                                              SEG_THRESHOLD).cpu()
+    cpu = on["cpu"]
+    ref = recount(cpu.data[POS], cpu.valid_mask(), samples["cpu"], k,
+                  SEG_THRESHOLD)
+    res = check_counts(what, counts[device], ref, counts["cpu"])
+    card, mine = ransac(on[device], k, iters, seed), ransac(cpu, k, iters,
+                                                              seed)
+    winners_differ = geometry(card[0]) != geometry(mine[0])
+    if winners_differ:
+        wg, wc = (int(counts[device].argmax()), int(counts["cpu"].argmax()))
+        gap = abs(int(counts["cpu"][wg]) - int(counts["cpu"][wc]))
+        if gap > int(ref["near"][wg] + ref["near"][wc]):
+            raise AssertionError(f"{what}: winners {wg} and {wc} differ by "
+                                 f"{gap} counts")
+        print(json.dumps({"phase": "path_segmentation_cpu_winner",
+                          "k": k, "card": wg, "cpu": wc, "gap": gap}),
+              flush=True)
+    return {"points": SEG_CROSS_N, "same_hypotheses": True, **res,
+            "winners_differ": winners_differ}
+
+
+def phase_path_segmentation(smi: str, device=None) -> PointBatch:
+    """Ground extraction and line fitting on an airborne tile:
+    ``ransac_plane_device(batch, 0.05, 1024, seed=1)`` on SEG_PLANE_N
+    points and ``ransac_line_device(batch, 0.05, 256)`` on SEG_LINE_N, each
+    gated (:func:`gate_segmentation`, :func:`cross_check_cpu`) before it is
+    timed: the call's time (median of 5), hypothesis x points a second, the
+    device's busy time and the peak of the memory it allocates.  Returns
+    the plane's batch for ``--profile``."""
+    dev = resolve_device(device)
+    plane_batch = None
+    for k, scene, iters, seed in ((3, plane_scene, SEG_PLANE_ITERS, 1),
+                                  (2, wire_scene, SEG_LINE_ITERS, 0)):
+        t0 = time.perf_counter()
+        pos, own = scene()
+        gate = gate_segmentation(pos, own, k, iters, seed, dev)
+        batch = gate.pop("batch")
+        cross = cross_check_cpu(pos, k, iters, seed, dev)
+        gate_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ransac(batch, k, iters, seed)
+        peak = torch.cuda.max_memory_allocated() - base
+        ms, lo, hi = step_ms(lambda i: ransac(batch, k, iters, seed),
+                             warmup=1, reps=5)
+        prof = gpu_profile(lambda i: ransac(batch, k, iters, seed), steps=2)
+        scored = gate["scored_hypotheses"] * len(pos)
+        print(json.dumps({
+            "phase": "path_segmentation",
+            "model": "plane" if k == 3 else "line",
+            "threshold": SEG_THRESHOLD, "seed": seed, **gate,
+            "cpu_cross_check": cross, "gate_s": gate_s,
+            "step_ms": ms, "step_ms_min": lo, "step_ms_max": hi,
+            "repeats": 5,
+            "mhypothesis_points_per_s": scored / ms / 1e3,
+            "device_busy_ms": prof["device_busy_ms_per_step"],
+            "device_launches": prof["device_launches_per_step"],
+            "peak_memory_bytes": peak,
+            "batch_bytes": pos.nbytes, "top": prof["top"][:5],
+            "card": smi}), flush=True)
+        if k == 3:
+            plane_batch = batch
+    return plane_batch
+
+
+# ---- convex hull -----------------------------------------------------------------
+
+def check_hull(what: str, pos: np.ndarray, tris: np.ndarray,
+               points: np.ndarray) -> int:
+    """The hull's vertex set equals scipy's (qhull) and the vertices of
+    ``convex_hull_as_points``; every point on the inner side of every face;
+    V = F/2 + 2.  Returns the vertex count."""
+    from scipy.spatial import ConvexHull
+
+    verts = np.unique(tris)
+    if set(verts.tolist()) != set(ConvexHull(pos).vertices.tolist()) \
+            or not np.array_equal(verts, np.unique(points)):
+        raise AssertionError(f"{what}: hull vertices differ from qhull's")
+    scale = max(1.0, float(np.abs(pos).max())) ** 2
+    a, b, c = pos[tris[:, 0]], pos[tris[:, 1]], pos[tris[:, 2]]
+    normal = np.cross(b - a, c - a)
+    offset = np.einsum("ij,ij->i", normal, a)
+    for i in range(0, len(pos), 1 << 14):
+        side = pos[i:i + (1 << 14)] @ normal.T - offset
+        if not (side <= 1e-9 * scale).all():
+            raise AssertionError(f"{what}: a point lies outside a face")
+    if len(verts) != len(tris) // 2 + 2:
+        raise AssertionError(f"{what}: {len(verts)} vertices, {len(tris)} "
+                             f"faces")
+    return len(verts)
+
+
+def phase_path_hull(smi: str, device=None) -> None:
+    """``convex_hull_as_triangle_mesh`` and ``convex_hull_as_points`` on
+    uniform cubes of HULL_SIZES points (benches/host_benches.py's), the
+    largest given as a batch on the card (its f32 positions come to the
+    host as f64); gated by :func:`check_hull`, then seconds each (median of
+    3).  The hull is host code: the card only holds the input."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(1)
+    sizes = {}
+    for n in HULL_SIZES:
+        pos = rng.uniform(-100.0, 100.0, (n, 3))
+        src = positions_buffer(pos)
+        if n == HULL_SIZES[-1]:
+            src = PointBatch.from_host(src, device=dev)
+            pos = pos.astype(np.float32).astype(np.float64)
+        what = f"path_hull ({n})"
+        tris = hull_mod.convex_hull_as_triangle_mesh(src)
+        points = hull_mod.convex_hull_as_points(src)
+        verts = check_hull(what, pos, tris, points)
+        runs = {}
+        for name, fn in (("triangle_mesh_s",
+                          hull_mod.convex_hull_as_triangle_mesh),
+                         ("points_s", hull_mod.convex_hull_as_points)):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn(src)
+                times.append(time.perf_counter() - t0)
+            runs[name] = float(np.median(times))
+        sizes[str(n)] = {"faces": len(tris), "vertices": verts,
+                         "input": "cuda batch" if n == HULL_SIZES[-1]
+                         else "host buffer", **runs}
+    print(json.dumps({"phase": "path_hull", "sizes": sizes,
+                      "equal_to_qhull": True, "card": smi}), flush=True)
+
+
+# ---- CRS reprojection ------------------------------------------------------------
+
+def reproject_tile(n: int = REPROJ_N, seed: int = 41) -> np.ndarray:
+    """A 2 km survey tile in ETRS89 / UTM 32N near Frankfurt: eastings
+    476 000-478 000 m, northings 5 550 000-5 552 000 m, heights 90-400 m."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(476000.0, 478000.0, n),
+                     rng.uniform(5550000.0, 5552000.0, n),
+                     rng.uniform(90.0, 400.0, n)], axis=1)
+
+
+def check_golden() -> int:
+    """The builtin engine on the 19 cases of the golden file (PROJ-made),
+    each within its ``tol``."""
+    cases = json.loads(GOLDEN.read_text())
+    for case in cases:
+        p = reproj_mod.Projection(case["src"], case["dst"],
+                                  backend="builtin")
+        err = np.abs(p.transform(np.asarray(case["points"], np.float64))
+                     - np.asarray(case["expected"])).max()
+        if not err < case["tol"]:
+            raise AssertionError(f"path_reproject: golden {case['name']} "
+                                 f"off by {err}")
+    return len(cases)
+
+
+def degrees_to_m(dlonlat: np.ndarray, lat: np.ndarray) -> np.ndarray:
+    """Ground distance of small (lon, lat) differences in degrees."""
+    m = np.pi / 180.0 * 6378137.0
+    return np.hypot(dlonlat[:, 0] * m * np.cos(np.radians(lat)),
+                    dlonlat[:, 1] * m)
+
+
+def phase_path_reproject(smi: str, device=None) -> None:
+    """A survey tile (REPROJ_N points, an f64 batch on the card) reprojected
+    from ETRS89 / UTM 32N to WGS 84 and back by
+    ``reproject_point_cloud_within`` with the builtin engine.  Gates: the
+    golden cases; the column still on the card in f64; the round trip
+    within 10 µm; where ``libproj`` loads, the builtin result within 1e-4 m
+    of its.  Then each direction timed (median of 2) beside the two copies
+    between host and card that it makes."""
+    dev = resolve_device(device)
+    golden = check_golden()
+    pos = reproject_tile()
+    batch = PointBatch.from_host(positions_buffer(pos),
+                                 policy=dt.DevicePolicy.EXACT, device=dev)
+
+    def run(src, dst):
+        t0 = time.perf_counter()
+        reproj_mod.reproject_point_cloud_within(batch, src, dst,
+                                                backend="builtin")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    times = {"forward_s": [run(REPROJ_SRC, REPROJ_DST)]}
+    col = batch.data[POS]
+    if col.device != dev or col.dtype != torch.float64 \
+            or col.shape != (REPROJ_N, 3):
+        raise AssertionError(f"path_reproject: column {col.dtype} "
+                             f"{tuple(col.shape)} on {col.device}")
+    geo = col.cpu().numpy()
+    times["inverse_s"] = [run(REPROJ_DST, REPROJ_SRC)]
+    trip = float(np.abs(batch.data[POS].cpu().numpy() - pos).max())
+    if not trip < 1e-5:
+        raise AssertionError(f"path_reproject: round trip off by {trip} m")
+    vs_proj = None
+    if native_proj.AVAILABLE:
+        other = reproj_mod.Projection(REPROJ_SRC, REPROJ_DST,
+                                      backend="proj").transform(pos)
+        vs_proj = float(degrees_to_m(geo[:, :2] - other[:, :2],
+                                     geo[:, 1]).max())
+        dz = float(np.abs(geo[:, 2] - other[:, 2]).max())
+        if not (vs_proj < 1e-4 and dz < 1e-4):
+            raise AssertionError(f"path_reproject: builtin off libproj by "
+                                 f"{vs_proj} m, {dz} m in height")
+    times["forward_s"].append(run(REPROJ_SRC, REPROJ_DST))
+    times["inverse_s"].append(run(REPROJ_DST, REPROJ_SRC))
+    copies = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = batch.data[POS].cpu().numpy()
+        torch.from_numpy(host).to(dev)
+        torch.cuda.synchronize()
+        copies.append(time.perf_counter() - t0)
+    fwd = float(np.median(times["forward_s"]))
+    copy_s = float(np.median(copies))
+    print(json.dumps({
+        "phase": "path_reproject", "points": REPROJ_N, "src": REPROJ_SRC,
+        "dst": REPROJ_DST, "backend": "builtin",
+        "proj_available": native_proj.AVAILABLE, "golden_cases": golden,
+        "round_trip_max_err_m": trip, "builtin_vs_libproj_max_m": vs_proj,
+        "column": "float64 on the card", **times,
+        "forward_mpoints_per_s": REPROJ_N / fwd / 1e6,
+        "inverse_mpoints_per_s":
+            REPROJ_N / float(np.median(times["inverse_s"])) / 1e6,
+        "copies_s": copy_s, "copies_share_of_forward": copy_s / fwd,
+        "card": smi}), flush=True)
+
+
 def cg_iteration_ms(graph) -> float:
     """GPU time of one PCG iteration of the pose graph, its host read of
     r·z included: one Gauss-Newton step with 64 CG iterations forced (a
@@ -2560,6 +3294,10 @@ def main() -> int:
     phase_path_registration(smi)
     phase_path_concat_convert(smi)
     phase_path_file_to_map(rows, smi)
+    phase_path_formats(rows, smi)
+    plane = phase_path_segmentation(smi)
+    phase_path_hull(smi)
+    phase_path_reproject(smi)
     if "--profile" in sys.argv[1:]:
         def shift(i):
             return (i % 7) * 1e-6
@@ -2577,6 +3315,8 @@ def main() -> int:
         # three iterations of point-to-plane ICP, target normals included
         phase_profile("path_icp", lambda i: path_icp(src, tgt, True, 3),
                       steps=1)
+        phase_profile("path_segmentation", lambda i: ransac(
+            plane, 3, SEG_PLANE_ITERS, 1), steps=2)
     print(json.dumps({"phase": "total",
                       "seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -3,8 +3,9 @@
 Format backends register themselves with the default
 :class:`~pasture_tpu_torch.io.base.IOFactory` at import, mirroring pasture's
 extension dispatch (reference: pasture-io/src/base/io_factory.rs:22-166):
-``.las``/``.laz`` -> LAS backend.  The ASCII and 3D Tiles ``.pnts``
-backends are not ported yet.
+``.las``/``.laz`` -> LAS backend, ``.pnts`` -> 3D Tiles backend.  The ASCII
+backend is importable but not in the factory (the reference keeps it out of
+the factory because the format string is mandatory, io_factory.rs:36-40).
 """
 
 from .base import (  # noqa: F401
@@ -22,8 +23,10 @@ from .base import (  # noqa: F401
     read_all_into,
     write_all,
 )
+from .ascii import AsciiReader, AsciiWriter  # noqa: F401
 from .device import batch_positions, read_batch  # noqa: F401
 from .las import LasReader, LasWriter  # noqa: F401
+from .tiles3d import PntsReader, PntsWriter  # noqa: F401
 
 
 def _register_formats() -> None:
@@ -31,6 +34,8 @@ def _register_formats() -> None:
     DEFAULT_FACTORY.register_reader("laz", LasReader)
     DEFAULT_FACTORY.register_writer("las", LasWriter)
     DEFAULT_FACTORY.register_writer("laz", LasWriter)
+    DEFAULT_FACTORY.register_reader("pnts", PntsReader)
+    DEFAULT_FACTORY.register_writer("pnts", PntsWriter)
 
 
 _register_formats()

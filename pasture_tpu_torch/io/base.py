@@ -214,7 +214,7 @@ read_all_appended = read_all_into
 
 def write_all(buffer: HostPointBuffer, path: Union[str, Path], **kw) -> None:
     """Open + write + flush (reference base/mod.rs:63-79); the format is
-    chosen by extension (``.las``/``.laz``).  See
+    chosen by extension (``.las``/``.laz``/``.pnts``).  See
     :func:`read_all` for a round-trip example."""
     with open_writer(path, buffer.schema, **kw) as w:
         w.write(buffer)
