@@ -55,7 +55,24 @@ the CUDA toolkit.  It
    scans (the generic voxel path on K5, exact point-to-plane ICP) against
    the known trajectory, K5 against its plain version on one scan's own
    inputs, then the pose graph (dense and CG) bringing knocked keyframes
-   back to their odometry poses;
+   back to their odometry poses; ``path_normals_exact`` — the port of
+   ``benches/normals_bench.py --exact``: ``compute_normals(method=
+   "exact")`` of the bench's surface at 1 048 576 points (k = 12, the
+   certified scan), more than 0.99 of the bench's kd-tree subsample within
+   1° of a host ``cKDTree`` oracle, the certified scan equal to the same
+   code visiting every block on 8 query tiles bit for bit, the card
+   against the CPU at 65 537 points; seconds, block visits, host syncs,
+   peak memory, busy share; ``path_pose_graph`` — the port of
+   ``benches/pose_graph_bench.py``: its circle graph solved dense at 256,
+   1 024 and 2 048 poses and by CG at 1 024 to 20 000, costs falling, ATE
+   below the start, dense = CG at 1 024 within 1e-6 m; ms per Gauss-Newton
+   iteration; ``path_trajectory`` — ``RegistrationPipeline`` over a closed
+   loop of ``TRAJ_SCANS`` fresh 1 048 576-point scans of a 64 m tile with
+   walls across x and y, each in its own frame, the loop closed by ICP,
+   ``optimize(10)``: keyframe poses against the truth (mean 0.02 m, worst
+   0.05 m, 0.2°), the map's voxel count within 2 % of the true poses' map,
+   K5 held against its plain version on a scan's inputs; wall seconds, the
+   split per scan, busy share;
 7. drives the merge of tiles before a voxel step (``path_concat_convert``):
    ``PointBatch.concatenate`` of eight padded batches (K5 once), then
    ``convert_batch_schema`` and an LAS encode of the decoded positions that
@@ -115,6 +132,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib
+import importlib.util
 import io
 import json
 import shutil
@@ -159,7 +177,8 @@ from pasture_tpu_torch.native import laszip
 from pasture_tpu_torch.native import proj as native_proj
 from pasture_tpu_torch.ops.compact import compact_columns
 from pasture_tpu_torch.pipeline import RegistrationPipeline
-from pasture_tpu_torch.registration import icp, optimize_pose_graph, so3_exp
+from pasture_tpu_torch.registration import (PoseGraph, icp,
+                                            optimize_pose_graph, so3_exp)
 from pasture_tpu_torch.registration.pose_graph import edge_residuals
 from pasture_tpu_torch.tools import convert as convert_tool
 from pasture_tpu_torch.tools import info as info_tool
@@ -253,6 +272,37 @@ SEG_BAND = 1e-5               # of the threshold: points this near it counted
 EPS32 = 2.0 ** -24            # float32's unit roundoff
 # convex hull: benches/host_benches.py's uniform cubes
 HULL_SIZES = (1_000, 10_000, 100_000)
+
+# the exact normals scan (benches/normals_bench.py --exact)
+EXACT_N = 1 << 20
+EXACT_K = 12
+EXACT_ORACLE = 4096           # the bench's kd-tree subsample
+EXACT_TILES = 8               # query tiles certified = exhaustive is held on
+EXACT_CROSS_N = (1 << 16) + 1  # card against CPU, just over the gather cap
+
+# the pose-graph sweep (benches/pose_graph_bench.py)
+POSE_DENSE = (256, 1024, 2048)
+POSE_CG = (1024, 5000, 10000, 20000)
+POSE_ITERS = 3
+POSE_CG_KW = {"cg_iterations": 600, "cg_tol": 1e-10}
+POSE_AGREE_AT = 1024          # dense and CG solve the same graph here
+
+# the closed trajectory: scans on a circle about the centre of a 64 m tile.
+# The loop is defined for 32 scans (radius 1 m, yaw 3° sin(2 pi i / 32));
+# fewer scans keep its step (~0.196 m, yaw <= 0.59°) on a smaller loop
+TRAJ_LOOP = 32
+TRAJ_SCANS = 8                # cut from 32 for the run's time: PERF.md
+TRAJ_N = 1 << 20
+TRAJ_SIZE = 64.0
+TRAJ_RADIUS = 1.0
+TRAJ_YAW_DEG = 3.0
+# the walls turn 10° off the axes: a wall along a face of the map's voxel
+# grid would count one layer of voxels or two by a millimetre of pose
+TRAJ_WALL_YAW_DEG = 10.0
+TRAJ_MEAN_M = 0.02            # gates, against the truth relative to pose 0
+TRAJ_WORST_M = 0.05
+TRAJ_ROT_DEG = 0.2
+TRAJ_MAP_SHARE = 0.02         # map voxels against the true poses' map
 # reprojection: a survey tile in ETRS89 / UTM 32N to WGS 84 and back
 REPROJ_N = 1 << 22
 REPROJ_SRC, REPROJ_DST = "EPSG:25832", "EPSG:4326"
@@ -517,21 +567,36 @@ def icp_residual(result, source: np.ndarray, target: np.ndarray) -> float:
     return float(np.abs(source @ rot.T + t - target).mean())
 
 
-def registration_scans(scans: int = REG_SCANS, n: int = REG_N,
-                       step: float = REG_STEP, seed: int = 13) -> list:
-    """``scans`` views of one scene — a 24 m terrain tile with two walls —
-    each shifted ``step`` m further along x, (n, 3) f64 each."""
-    rng = np.random.default_rng(seed)
-    n_wall = n // 8
-    n_ground = n - 2 * n_wall
-    xy = rng.uniform(0, 24, (n_ground, 2))
+def scene_points(rng, n: int, lo: float, hi: float, walls,
+                 wall_yaw_deg: float = 0.0) -> np.ndarray:
+    """A terrain tile ``[lo, hi]²`` (``z = 0.5 sin 0.4x + 0.4 cos 0.3y``)
+    with 3 m walls, each ``(axis, at)`` a plane across that axis with 1 cm
+    of noise, ``n // (4 * len(walls))`` points each, turned ``wall_yaw_deg``
+    about the vertical through the tile's centre; (n, 3) f64."""
+    n_wall = n // (4 * len(walls))
+    xy = rng.uniform(lo, hi, (n - len(walls) * n_wall, 2))
     z = 0.5 * np.sin(0.4 * xy[:, 0]) + 0.4 * np.cos(0.3 * xy[:, 1])
     parts = [np.stack([xy[:, 0], xy[:, 1], z], axis=1)]
-    for x0 in (6.0, 18.0):
-        yz = rng.uniform(0, 1, (n_wall, 2))
-        parts.append(np.stack([x0 + rng.normal(0, 0.01, n_wall),
-                               yz[:, 0] * 24, yz[:, 1] * 3], axis=1))
-    scene = np.concatenate(parts)
+    c, s_ = np.cos(np.deg2rad(wall_yaw_deg)), np.sin(np.deg2rad(wall_yaw_deg))
+    mid = (lo + hi) / 2
+    for axis, at in walls:
+        uv = rng.uniform(0, 1, (n_wall, 2))
+        across = at + rng.normal(0, 0.01, n_wall)
+        along = lo + uv[:, 0] * (hi - lo)
+        x, y = (across, along) if axis == 0 else (along, across)
+        if wall_yaw_deg:
+            x, y = (mid + c * (x - mid) - s_ * (y - mid),
+                    mid + s_ * (x - mid) + c * (y - mid))
+        parts.append(np.stack([x, y, uv[:, 1] * 3], axis=1))
+    return np.concatenate(parts)
+
+
+def registration_scans(scans: int = REG_SCANS, n: int = REG_N,
+                       step: float = REG_STEP, seed: int = 13) -> list:
+    """``scans`` views of one scene — a 24 m terrain tile with two walls
+    across x — each shifted ``step`` m further along x, (n, 3) f64 each."""
+    scene = scene_points(np.random.default_rng(seed), n, 0.0, 24.0,
+                         ((0, 6.0), (0, 18.0)))
     return [scene + np.asarray([step * i, 0.0, 0.0]) for i in range(scans)]
 
 
@@ -581,12 +646,10 @@ def pose_error(rotations: np.ndarray, translations: np.ndarray,
                      np.abs(translations - odometry[1]).max()))
 
 
-def held_compaction(scan: np.ndarray, device=None) -> int:
-    """K5 held against its plain version on the inputs the pipeline's voxel
-    downsampling of ``scan`` hands it: the sorted voxel keys and the
-    first-of-voxel mask, captured from one ``_downsample`` call.  Raises
-    unless the kept counts and the compacted columns are equal; returns
-    the kept count."""
+def capture_compaction(scan: np.ndarray, device=None) -> tuple:
+    """``(columns, mask, (compacted, count))``: what one ``_downsample``
+    call of the pipeline hands K5 — the sorted voxel keys and the
+    first-of-voxel mask — and what it returns."""
     seen = []
 
     def capture(cols, keep):
@@ -601,7 +664,15 @@ def held_compaction(scan: np.ndarray, device=None) -> int:
         voxel_mod.compact_columns = compact_columns
     if len(seen) != 1:
         raise AssertionError(f"the downsampling compacted {len(seen)} times")
-    cols, keep, (got, count) = seen[0]
+    return seen[0]
+
+
+def held_compaction(scan: np.ndarray, device=None) -> int:
+    """K5 held against its plain version on the inputs the pipeline's voxel
+    downsampling of ``scan`` hands it (:func:`capture_compaction`).  Raises
+    unless the kept counts and the compacted columns are equal; returns
+    the kept count."""
+    cols, keep, (got, count) = capture_compaction(scan, device)
     want, wcount = ck.blockwise_compact_plain(cols, keep)
     if int(count) != int(wcount):
         raise AssertionError(f"registration K5: {int(count)} kept, plain "
@@ -617,6 +688,297 @@ def trajectory_error(traj: np.ndarray, step: float = REG_STEP) -> float:
     ``step``."""
     return float(np.abs(np.linalg.norm(np.diff(traj, axis=0), axis=1)
                         - step).max())
+
+
+# ---- exact normals at scale, the pose-graph sweep, the trajectory ----------
+
+def kdtree_normals(pos: np.ndarray, sub: np.ndarray, k: int) -> np.ndarray:
+    """The bench's host oracle: exact k-NN covariance normals of the rows
+    ``sub`` from a ``scipy.spatial.cKDTree`` in f64."""
+    from scipy.spatial import cKDTree
+    _, idx = cKDTree(pos).query(pos[sub], k=k, workers=-1)
+    neigh = pos[idx].astype(np.float64)
+    c = neigh - neigh.mean(axis=1, keepdims=True)
+    return np.linalg.eigh(np.einsum("nki,nkj->nij", c, c) / k)[1][:, :, 0]
+
+
+def share_within(a: np.ndarray, b: np.ndarray, deg: float) -> float:
+    """Share of unoriented normal pairs within ``deg`` degrees."""
+    dot = np.abs(np.sum(a.astype(np.float64) * b, axis=1))
+    return float((dot > np.cos(np.deg2rad(deg))).mean())
+
+
+def exact_normals(pos: np.ndarray, device=None):
+    """``compute_normals(method="exact")`` of a host buffer of ``pos``."""
+    return algorithms.compute_normals(positions_buffer(pos), EXACT_K,
+                                      method="exact", device=device)
+
+
+def gate_normals_exact(pos: np.ndarray, nrm: np.ndarray, curv: np.ndarray
+                       ) -> dict:
+    """Gates 1 and 3 of ``path_normals_exact`` on a result of
+    :func:`exact_normals`: more than 0.99 of the bench's kd-tree subsample
+    within 1° of the host oracle; the share within 6° of the analytic
+    normal (reported, as the bench does)."""
+    n = pos.shape[0]
+    if nrm.shape != (n, 3) or curv.shape != (n,) \
+            or not (np.isfinite(nrm).all() and np.isfinite(curv).all()):
+        raise AssertionError("path_normals_exact: bad shape or non-finite "
+                             "values")
+    sub = np.arange(0, n, max(n // EXACT_ORACLE, 1))
+    oracle = share_within(nrm[sub], kdtree_normals(pos, sub, EXACT_K), 1.0)
+    if not oracle > 0.99:
+        raise AssertionError(f"path_normals_exact: {oracle} of the kd-tree "
+                             f"subsample within 1° of the host oracle")
+    return {"oracle_points": len(sub), "oracle_within_1deg": oracle,
+            "analytic_within_6deg": within_degrees(nrm, pos)}
+
+
+def check_certified(pos: np.ndarray, device=None, tiles: int = EXACT_TILES,
+                    seed: int = 5) -> dict:
+    """Gate 2 of ``path_normals_exact``: on the first query slice that
+    ``compute_normals`` hands the scan, the certified scan of ``tiles``
+    query tiles — the first, the last and seeded ones — equals the same
+    code visiting every block (thresholds, normals, curvature, bit for
+    bit)."""
+    dev = resolve_device(device)
+    p = torch.from_numpy(pos).to(dev)
+    valid = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
+    q = p[:normals_mod._EXACT_SLICE]
+    nt = -(-q.shape[0] // 1024)
+    rng = np.random.default_rng(seed)
+    ids = sorted({0, nt - 1} | set(rng.choice(
+        np.arange(1, max(nt - 1, 1)), size=min(tiles - 2, max(nt - 2, 0)),
+        replace=False).tolist()))
+    with fp32_matmul():
+        cert = normals_mod._exact_scan(p, valid, EXACT_K, queries=q,
+                                       tiles=ids)
+        full = normals_mod._exact_scan(p, valid, EXACT_K, queries=q,
+                                       tiles=ids, exhaustive=True)
+    for what, a, b in zip(("thresholds", "normals", "curvature"), cert[1:4],
+                          full[1:4]):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"path_normals_exact: certified {what} differ from the "
+                f"exhaustive scan's on tiles {ids}")
+    return {"tiles": ids, "certified_visits": cert[4].tolist(),
+            "exhaustive_visits": full[4].tolist(),
+            "certified_equals_exhaustive": True}
+
+
+def cross_check_exact(n: int = EXACT_CROSS_N, device=None) -> dict:
+    """Gate 4 of ``path_normals_exact``: the card against the CPU at ``n``
+    points, both through the scan: more than 0.999 of the normals within 1°
+    and of the curvatures within 1e-4."""
+    pos = normals_surface(n)
+    nrm, curv = exact_normals(pos, device)
+    cnrm, ccurv = exact_normals(pos, "cpu")
+    within = share_within(nrm, cnrm, 1.0)
+    dc = np.abs(curv.astype(np.float64) - ccurv)
+    curv_share = float((dc <= 1e-4).mean())
+    if not (within > 0.999 and curv_share > 0.999):
+        raise AssertionError(
+            f"path_normals_exact: card against CPU at {n} points: {within} "
+            f"of normals within 1°, {curv_share} of curvatures within 1e-4")
+    return {"points": n, "within_1deg": within,
+            "curvature_within_1e-4": curv_share,
+            "max_curvature_diff": float(dc.max()),
+            "normals_bit_equal": float(np.mean(np.all(nrm == cnrm, axis=1)))}
+
+
+def circle_graph(n: int, seed: int = 11, drift: float = 0.02, device=None):
+    """The graph of benches/pose_graph_bench.py: ``n`` poses on a 5 m
+    circle, odometry edges with ``drift`` m of noise a step, exact loop
+    closures from every third pose to pose 0, the chain-integrated start;
+    a fresh ``default_rng(seed)`` per graph.  Returns ``(PoseGraph on
+    device, true translations (n, 3))``."""
+    rng = np.random.default_rng(seed)
+    angles = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    true_t = np.stack([np.cos(angles), np.sin(angles), np.zeros(n)],
+                      axis=1) * 5.0
+    edges, rel_t = [], []
+    for i in range(n - 1):
+        edges.append([i, i + 1])
+        rel_t.append(true_t[i + 1] - true_t[i] + rng.normal(0, drift, 3))
+    for i in range(3, n, 3):
+        edges.append([i, 0])
+        rel_t.append(true_t[0] - true_t[i])
+    est_t = np.concatenate([true_t[:1], true_t[:1]
+                            + np.cumsum(rel_t[:n - 1], axis=0)])
+    dev = resolve_device(device)
+    e = len(edges)
+
+    def f64(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
+                               device=dev)
+    return PoseGraph(
+        rotations=f64(np.broadcast_to(np.eye(3), (n, 3, 3))),
+        translations=f64(est_t),
+        edges=torch.as_tensor(edges, dtype=torch.int64, device=dev),
+        rel_rotations=f64(np.broadcast_to(np.eye(3), (e, 3, 3))),
+        rel_translations=f64(np.stack(rel_t))), true_t
+
+
+def solve_circle(n: int, solver: str, device=None,
+                 iterations: int = POSE_ITERS) -> dict:
+    """One size of the pose-graph sweep: a warm solve, then a timed one
+    (host clock to the cost read).  Gates: the final cost below the first
+    iteration's, the ATE below the chain-integrated start's."""
+    graph, true_t = circle_graph(n, device=device)
+    kw = dict(iterations=iterations, solver=solver,
+              **(POSE_CG_KW if solver == "cg" else {}))
+    float(optimize_pose_graph(graph, **kw)[1][-1])
+    t0 = time.perf_counter()
+    opt, costs = optimize_pose_graph(graph, **kw)
+    costs = costs.cpu().numpy()
+    sec = time.perf_counter() - t0
+    trans = opt.translations.cpu().numpy()
+    ate0 = float(np.linalg.norm(graph.translations.cpu().numpy() - true_t,
+                                axis=1).mean())
+    ate = float(np.linalg.norm(trans - true_t, axis=1).mean())
+    if not costs[-1] < costs[0]:
+        raise AssertionError(f"path_pose_graph ({solver}, {n} poses): cost "
+                             f"{costs.tolist()}")
+    if not ate < ate0:
+        raise AssertionError(f"path_pose_graph ({solver}, {n} poses): ATE "
+                             f"{ate} m, start {ate0} m")
+    return {"solver": solver, "poses": n, "edges": graph.num_edges,
+            "ms_per_gn_iteration": sec / iterations * 1e3,
+            "costs": costs.tolist(), "ate_start_m": ate0, "ate_m": ate,
+            "translations": trans}
+
+
+def gate_pose_graph(dense=POSE_DENSE, cg=POSE_CG, device=None,
+                    agree_at: int = POSE_AGREE_AT) -> list:
+    """The sweep: every size of each solver through :func:`solve_circle`,
+    then dense and CG on the ``agree_at``-pose graph within 1e-6 m."""
+    runs = [solve_circle(n, "dense", device) for n in dense] \
+        + [solve_circle(n, "cg", device) for n in cg]
+    pair = [r["translations"] for r in runs if r["poses"] == agree_at]
+    gap = float(np.abs(pair[0] - pair[1]).max())
+    if not gap <= 1e-6:
+        raise AssertionError(f"path_pose_graph: dense and CG differ by {gap} "
+                             f"m at {agree_at} poses")
+    for r in runs:
+        del r["translations"]
+    return runs, gap
+
+
+def trajectory_poses(scans: int = TRAJ_SCANS, radius: float = None,
+                     yaw_deg: float = None):
+    """A closed loop: scan i at angle ``2 pi i / scans`` on a circle of
+    ``radius`` m about the tile's centre, yawed ``yaw_deg · sin`` of it; by
+    default ``TRAJ_RADIUS`` and ``TRAJ_YAW_DEG`` scaled by ``scans /
+    TRAJ_LOOP``, which keeps the 32-scan loop's step.  Returns
+    ``(rotations (scans, 3, 3), translations (scans, 3))``."""
+    if radius is None:
+        radius = TRAJ_RADIUS * scans / TRAJ_LOOP
+    if yaw_deg is None:
+        yaw_deg = TRAJ_YAW_DEG * scans / TRAJ_LOOP
+    a = 2 * np.pi * np.arange(scans) / scans
+    yaw = np.deg2rad(yaw_deg) * np.sin(a)
+    c, s_ = np.cos(yaw), np.sin(yaw)
+    zero, one = np.zeros(scans), np.ones(scans)
+    rot = np.stack([np.stack([c, -s_, zero], -1), np.stack([s_, c, zero], -1),
+                    np.stack([zero, zero, one], -1)], -2)
+    return rot, np.stack([radius * np.cos(a), radius * np.sin(a), zero], -1)
+
+
+def trajectory_scan(i: int, poses, n: int = TRAJ_N,
+                    size: float = TRAJ_SIZE) -> np.ndarray:
+    """Scan i: a fresh draw (seed 13 + i) of a ``size`` m terrain tile
+    centred on the origin with walls across x and y at a quarter of the
+    tile from its centre, in the scan's own frame (the inverse of its true
+    pose); (n, 3) f64."""
+    q = size / 4
+    world = scene_points(np.random.default_rng(13 + i), n, -size / 2,
+                         size / 2, ((0, -q), (0, q), (1, -q), (1, q)),
+                         TRAJ_WALL_YAW_DEG)
+    rot, t = poses[0][i], poses[1][i]
+    return (world - t) @ rot
+
+
+def path_trajectory(scans, device=None, icp_iterations: int = 20):
+    """``RegistrationPipeline`` over ``scans`` (every scan a keyframe),
+    ``add_loop_closure(0, last)`` by ICP and ``optimize(10)``.  Returns
+    ``(pipeline, odometry poses, cost curve, seconds)``: each scan's
+    downsampling (with its host round trip) and ICP, and the loop closure
+    and pose graph, timed on the host clock (each returns numpy)."""
+    pipe = RegistrationPipeline(voxel_size=REG_VOXEL, keyframe_distance=0.05,
+                                icp_iterations=icp_iterations, device=device)
+    sec = {"downsample": [], "icp": []}
+
+    def timed(name, fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            sec[name].append(time.perf_counter() - t0)
+            return out
+        return run
+    pipe._downsample = timed("downsample", pipe._downsample)
+    pipe._align = timed("icp", pipe._align)
+    count = 0
+    for scan in scans:
+        pipe.add_scan(scan)
+        count += 1
+    odometry = (np.stack([kf.rotation for kf in pipe.keyframes]),
+                pipe.trajectory())
+    t0 = time.perf_counter()
+    pipe.add_loop_closure(0, len(pipe.keyframes) - 1)
+    costs = pipe.optimize(10)
+    sec["pose_graph"] = time.perf_counter() - t0
+    del pipe._downsample, pipe._align
+    return pipe, odometry, costs, sec
+
+
+def pose_errors(rotations: np.ndarray, translations: np.ndarray, poses
+                ) -> dict:
+    """Keyframe poses against the truth relative to pose 0: mean and worst
+    translation error (m), worst rotation error (degrees)."""
+    r0, t0 = poses[0][0], poses[1][0]
+    true_r = np.einsum("ji,njk->nik", r0, poses[0])
+    true_t = (poses[1] - t0) @ r0
+    dt_ = np.linalg.norm(translations - true_t, axis=1)
+    # |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2): well conditioned at small
+    # angles, where the trace's arccos loses them under f32 rounding
+    chord = np.linalg.norm(rotations - true_r, axis=(1, 2)) / np.sqrt(8.0)
+    ang = 2.0 * np.arcsin(np.clip(chord, 0.0, 1.0))
+    return {"mean_m": float(dt_.mean()), "worst_m": float(dt_.max()),
+            "rotation_deg": float(np.rad2deg(ang.max()))}
+
+
+def true_map_count(pipe: RegistrationPipeline, poses) -> int:
+    """Voxels of ``map_points()`` with every keyframe at its true pose
+    relative to pose 0 (the keyframes' own poses restored after)."""
+    r0, t0 = poses[0][0], poses[1][0]
+    kept = [(kf.rotation, kf.translation) for kf in pipe.keyframes]
+    try:
+        for kf, rot, t in zip(pipe.keyframes, poses[0], poses[1]):
+            kf.rotation, kf.translation = r0.T @ rot, r0.T @ (t - t0)
+        return len(pipe.map_points())
+    finally:
+        for kf, (rot, t) in zip(pipe.keyframes, kept):
+            kf.rotation, kf.translation = rot, t
+
+
+def gate_trajectory(pipe: RegistrationPipeline, poses, scans: int) -> dict:
+    """The trajectory's gates: every scan a keyframe; after the loop
+    closure and the pose graph, mean and worst translation error and the
+    rotation error within ``TRAJ_*``; the map's voxel count within
+    ``TRAJ_MAP_SHARE`` of the same map from the true poses."""
+    if len(pipe.keyframes) != scans:
+        raise AssertionError(f"path_trajectory: {len(pipe.keyframes)} "
+                             f"keyframes of {scans} scans")
+    out = pose_errors(np.stack([kf.rotation for kf in pipe.keyframes]),
+                      pipe.trajectory(), poses)
+    out["map_voxels"] = len(pipe.map_points())
+    out["true_map_voxels"] = true_map_count(pipe, poses)
+    if not (out["mean_m"] <= TRAJ_MEAN_M and out["worst_m"] <= TRAJ_WORST_M
+            and out["rotation_deg"] <= TRAJ_ROT_DEG
+            and abs(out["map_voxels"] - out["true_map_voxels"])
+            <= TRAJ_MAP_SHARE * out["true_map_voxels"]):
+        raise AssertionError(f"path_trajectory: {out}")
+    return out
 
 
 # ---- merging tiles -------------------------------------------------------------
@@ -2088,13 +2450,15 @@ def phase_path_exact_f32(batch: PointBatch, affine, tiles: int, rows: list,
         "mpoints_per_s": n / ms / 1e3, "card": smi}), flush=True)
 
 
-def gpu_profile(step, steps: int = 5) -> dict:
+def gpu_profile(step, steps: int = 5, warm: bool = True) -> dict:
     """Where ``steps`` steady calls of ``step(i)`` spend GPU time
     (``torch.profiler``): per step, the traced wall time, the device busy
     time (sum of kernel times), the hand kernels' share, the device
-    launches, and the top kernels by name."""
+    launches, and the top kernels by name.  ``warm``: one call of
+    ``step(0)`` first, outside the trace."""
     from torch.profiler import ProfilerActivity, profile
-    step(0)
+    if warm:
+        step(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2408,6 +2772,143 @@ def phase_path_registration(smi: str) -> None:
         flush=True)
 
 
+def phase_path_normals_exact(smi: str) -> None:
+    """The port of ``benches/normals_bench.py --exact``: exact normals of
+    the bench's 1 048 576-point surface (k = 12) through
+    ``compute_normals(method="exact")`` from a host buffer.  Gated before
+    any time counts (:func:`gate_normals_exact`, :func:`check_certified`,
+    :func:`cross_check_exact`), then timed (median of 2 after the warm
+    call that the gates read), with the scan's block visits and host
+    syncs, peak memory and the device's busy share of one traced call."""
+    if importlib.util.find_spec("scipy") is None:
+        raise RuntimeError("path_normals_exact: the kd-tree oracle needs "
+                           "scipy")
+    pos = normals_surface(EXACT_N)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    nrm, curv = exact_normals(pos)
+    warm_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    out = {"phase": "path_normals_exact", "points": EXACT_N, "k": EXACT_K,
+           "launches": counts}
+    gate_s = {}
+    for name, gate in (
+            ("oracle", lambda: gate_normals_exact(pos, nrm, curv)),
+            ("certified", lambda: {"certified": check_certified(pos)}),
+            ("card_vs_cpu", lambda: {"card_vs_cpu": cross_check_exact()})):
+        t0 = time.perf_counter()
+        out.update(gate())
+        gate_s[name] = time.perf_counter() - t0
+    normals_mod.SCAN_COUNTS.update(dict.fromkeys(normals_mod.SCAN_COUNTS, 0))
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        exact_normals(pos)
+        runs.append(time.perf_counter() - t0)
+    scan = {k: v / 2 for k, v in normals_mod.SCAN_COUNTS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    # the device's busy share over one query slice of the same call
+    p = torch.from_numpy(pos).cuda()
+    ones = torch.ones(p.shape[0], dtype=torch.bool, device=p.device)
+
+    def one_slice(i):
+        with fp32_matmul():
+            normals_mod._normals_scan_exact(
+                p, ones, EXACT_K, queries=p[:normals_mod._EXACT_SLICE])
+    prof = gpu_profile(one_slice, steps=1, warm=False)
+    sec = float(np.median(runs))
+    print(json.dumps({
+        **out, "gate_seconds": gate_s, "warm_seconds": warm_s,
+        "seconds": sec, "seconds_runs": runs,
+        "mpoints_per_s": EXACT_N / sec / 1e6, "query_tiles": scan["tiles"],
+        "tiles_summing_whole_blocks": scan["dense_tiles"],
+        "block_visits_per_tile": scan["visits"] / scan["tiles"],
+        "block_visits_max": normals_mod.SCAN_COUNTS["max_visits"],
+        "host_syncs": scan["host_syncs"], "peak_memory_mb": peak / 2**20,
+        "device_busy_share_one_slice": prof["device_busy_ms_per_step"]
+        / prof["traced_wall_ms_per_step"],
+        "traced_ms_one_slice": prof["traced_wall_ms_per_step"],
+        "device_launches_one_slice": prof["device_launches_per_step"],
+        "top": prof["top"][:6], "card": smi}), flush=True)
+
+
+def phase_path_pose_graph(smi: str) -> None:
+    """The port of ``benches/pose_graph_bench.py``: the circle graph solved
+    dense at 256 / 1 024 / 2 048 poses and by CG at 1 024 / 5 000 /
+    10 000 / 20 000 (:func:`gate_pose_graph`): ms per Gauss-Newton
+    iteration, ATE and edges per size."""
+    t0 = time.perf_counter()
+    runs, gap = gate_pose_graph()
+    print(json.dumps({"phase": "path_pose_graph", "iterations": POSE_ITERS,
+                      **POSE_CG_KW, "runs": runs,
+                      "dense_cg_max_diff_m": gap,
+                      "seconds": time.perf_counter() - t0, "card": smi}),
+          flush=True)
+
+
+def phase_path_trajectory(rows: list, smi: str) -> None:
+    """``RegistrationPipeline`` over a closed loop of ``TRAJ_SCANS`` scans
+    of ``TRAJ_N`` points (:func:`trajectory_scan`), the loop closed by ICP,
+    then the pose graph: gated (:func:`gate_trajectory`), K5 held against
+    its plain version on one scan's own inputs and timed as a row; wall
+    seconds of the pipeline (the scans' draws left out), its split per
+    scan, and the device's busy share over two scans traced (one ICP)."""
+    poses = trajectory_poses()
+    draw_s = []
+
+    def scans():
+        for i in range(TRAJ_SCANS):
+            t0 = time.perf_counter()
+            scan = trajectory_scan(i, poses)
+            draw_s.append(time.perf_counter() - t0)
+            yield scan
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pipe, odometry, costs, sec = path_trajectory(scans())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - sum(draw_s)
+    counts = kernels.launch_counts()
+    expect_launched("path_trajectory", counts, "blockwise_compact")
+    gate = gate_trajectory(pipe, poses, TRAJ_SCANS)
+    scan0 = trajectory_scan(0, poses)
+    cols, keep, _ = capture_compaction(scan0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=keep.device)
+    compaction_row(rows, cols, keep, "blockwise_compact_trajectory",
+                   "path_trajectory", flush)
+    read_launches(rows, "path_trajectory", counts)
+    two = [scan0, trajectory_scan(1, poses)]
+
+    def prefix(i):
+        p2 = RegistrationPipeline(voxel_size=REG_VOXEL,
+                                  keyframe_distance=0.05)
+        for sc in two:
+            p2.add_scan(sc)
+    prof = gpu_profile(prefix, steps=1, warm=False)
+    icp_s = sec["icp"][:TRAJ_SCANS - 1]
+    points = TRAJ_SCANS * TRAJ_N
+    print(json.dumps({
+        "phase": "path_trajectory", "scans": TRAJ_SCANS,
+        "points_per_scan": TRAJ_N, "voxel_size": REG_VOXEL,
+        "keyframe_points_mean": float(np.mean([len(k.points)
+                                               for k in pipe.keyframes])),
+        "odometry_errors": pose_errors(*odometry, poses), **gate,
+        "costs": [float(c) for c in costs], "k5_equal_to_plain": True,
+        "launches": counts,
+        "k5_launches_per_scan": counts["blockwise_compact"] / TRAJ_SCANS,
+        "seconds": wall, "mpoints_per_s": points / wall / 1e6,
+        "downsample_ms_per_scan": float(np.mean(
+            sec["downsample"][:TRAJ_SCANS])) * 1e3,
+        "icp_ms_per_scan": float(np.mean(icp_s)) * 1e3,
+        "loop_closure_icp_ms": sec["icp"][-1] * 1e3,
+        "pose_graph_ms": (sec["pose_graph"] - sec["icp"][-1]) * 1e3,
+        "draw_seconds": sum(draw_s),
+        "device_busy_share_2_scans": prof["device_busy_ms_per_step"]
+        / prof["traced_wall_ms_per_step"],
+        "traced_ms_2_scans": prof["traced_wall_ms_per_step"],
+        "top": prof["top"][:6], "card": smi}), flush=True)
+
+
 def counted_fold(path, device=None):
     """One default fold with the launch counts and the fold's host syncs
     set to 0 just before and read just after; the first K4 call's streams
@@ -2475,7 +2976,15 @@ def file_to_map_rows(rows: list, captured: dict,
             library_ms=gpu_ms(library_sort, flush, reps=5),
             path=path, counter="tile_sort")
 
-    cols, keep = captured["compact"]
+    compaction_row(rows, *captured["compact"], f"blockwise_compact_{tag}",
+                   path, flush)
+
+
+def compaction_row(rows: list, cols: list, keep: torch.Tensor, name: str,
+                   path: str, flush: torch.Tensor) -> None:
+    """K5 held against its plain version on inputs ``path`` gave it, timed,
+    and added as the row ``name`` of ``path``'s run; the library call is
+    boolean-mask indexing of each column."""
     m = keep.shape[0]
     got, gcount = ck.blockwise_compact(cols, keep)
     want, wcount = ck.blockwise_compact_plain(cols, keep)
@@ -2483,10 +2992,10 @@ def file_to_map_rows(rows: list, captured: dict,
     kept = int(gcount.item())
     if kept != int(wcount.item()) or not all(
             torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"blockwise_compact on the {path} merge's "
-                             f"keys differs from its plain version")
+        raise AssertionError(f"blockwise_compact on {path}'s inputs "
+                             f"differs from its plain version")
     row_bytes = sum(c.numel() // m * c.element_size() for c in cols)
-    add_row(rows, f"blockwise_compact_{tag}", _CSRC + "compact.cu",
+    add_row(rows, name, _CSRC + "compact.cu",
             _TPU + "compact_kernel.py:135", 0.0,
             gpu_ms(lambda: ck.blockwise_compact(cols, keep), flush),
             gpu_ms(lambda: ck.blockwise_compact_plain(cols, keep), flush,
@@ -3292,6 +3801,11 @@ def main() -> int:
     phase_path_normals(surface, rows, smi)
     src, tgt = phase_path_icp(dev, rows, smi)
     phase_path_registration(smi)
+    at_scale = time.perf_counter()
+    phase_path_normals_exact(smi)
+    phase_path_pose_graph(smi)
+    phase_path_trajectory(rows, smi)
+    at_scale = time.perf_counter() - at_scale
     phase_path_concat_convert(smi)
     phase_path_file_to_map(rows, smi)
     phase_path_formats(rows, smi)
@@ -3318,7 +3832,8 @@ def main() -> int:
         phase_profile("path_segmentation", lambda i: ransac(
             plane, 3, SEG_PLANE_ITERS, 1), steps=2)
     print(json.dumps({"phase": "total",
-                      "seconds": time.perf_counter() - t0}), flush=True)
+                      "seconds": time.perf_counter() - t0,
+                      "at_scale_phases_seconds": at_scale}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -146,8 +146,7 @@ def test_compute_normals_plane_and_centroid(rng):
 
 
 def test_compute_normals_validation(rng):
-    """The reference's errors, and the exact path above 65 536 points,
-    which the port does not have yet."""
+    """The reference's errors."""
     port, _ = _buffers(rng.uniform(0, 1, (64, 3)))
     small, _ = _buffers(rng.uniform(0, 1, (2, 3)))
     with pytest.raises(ValueError, match="too small"):
@@ -158,6 +157,3 @@ def test_compute_normals_validation(rng):
         compute_normals(port, 3, method="kdtree", device="cpu")
     with pytest.raises(ValueError, match="window"):
         compute_normals(port, 12, method="morton", window=8, device="cpu")
-    big, _ = _buffers(rng.uniform(0, 1, ((1 << 16) + 1, 3)))
-    with pytest.raises(NotImplementedError, match="scan_exact"):
-        compute_normals(big, 8, method="exact", device="cpu")
