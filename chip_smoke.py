@@ -115,6 +115,23 @@ the CUDA toolkit.  It
    on the card) to WGS 84 and back with the builtin engine: the golden
    cases, the round trip within 10 µm, the column still on the card, and
    ``libproj`` within 1e-4 m where it loads; rates and the copies' share.
+10. drives the distributed layer (``path_distributed``): every entry point
+   of ``pasture_tpu_torch.parallel`` and ``RegistrationPipeline(mesh=)`` in
+   two worlds — (a) one NCCL rank in this process, (b) ``DIST_SIZE`` ranks
+   spawned on the same card with gloo, each collective staged through host
+   memory and counted, the ranks loading the kernels this process built —
+   at the single-card paths' sizes: bounds, the quantized voxelize a shard
+   (path B (ii), K4 and K3'q once a shard), the merged voxelize with run
+   tables (K5), the Morton partition and halo exchange, halo-windowed
+   normals (K6), replicated and partitioned ICP, the dense and CG pose
+   graph, ``sharded_read_all`` of four LAS files and the pipeline over the
+   trajectory's first scans.  Each step is gated against the single-device
+   path (``gate_distributed``), world (b) against world (a)
+   (``compare_worlds``), and in world (b) the card's partition against the
+   same ranks' partition on the CPU bit for bit; then seconds per step,
+   collective and staged bytes, K3–K6 launches a step and rank 0's device
+   busy.  K4, K3'q, K5 and K6 are held against their plain versions on the
+   inputs world (a) gave them and timed as rows.
 
 The ``kernels`` phase also holds K6 against its plain version at the
 normals path's shape and at the point-to-plane ICP's.  ``--profile`` adds
@@ -144,8 +161,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from pasture_tpu_torch import algorithms
+from pasture_tpu_torch import algorithms, parallel
 from pasture_tpu_torch._device import fp32_matmul, resolve_device
 from pasture_tpu_torch.algorithms import convexhull as hull_mod
 from pasture_tpu_torch.algorithms import reprojection as reproj_mod
@@ -176,6 +194,7 @@ from pasture_tpu_torch.ops.kernels import window_fit_kernel as wf
 from pasture_tpu_torch.native import laszip
 from pasture_tpu_torch.native import proj as native_proj
 from pasture_tpu_torch.ops.compact import compact_columns
+from pasture_tpu_torch.parallel import spawn as par_spawn
 from pasture_tpu_torch.pipeline import RegistrationPipeline
 from pasture_tpu_torch.registration import (PoseGraph, icp,
                                             optimize_pose_graph, so3_exp)
@@ -2948,7 +2967,17 @@ def file_to_map_rows(rows: list, captured: dict,
     tag = path.removeprefix("path_")
     dev = captured["compact"][1].device
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    streams, tile_len, num_keys = captured["tile_sort"]
+    tile_sort_row(rows, *captured["tile_sort"], f"tile_sort_{tag}", path,
+                  flush)
+    compaction_row(rows, *captured["compact"], f"blockwise_compact_{tag}",
+                   path, flush)
+
+
+def tile_sort_row(rows: list, streams: list, tile_len: int, num_keys: int,
+                  name: str, path: str, flush: torch.Tensor) -> None:
+    """K4 held against its plain version on inputs ``path`` gave it, timed,
+    and added as the row ``name`` of ``path``'s run; the library call is
+    ``torch.sort`` of the packed key with a gather of the other streams."""
     n = streams[0].shape[0]
     tiles = n // tile_len
     _, dkey = check_tile_sort(streams, tile_len, num_keys)
@@ -2962,7 +2991,7 @@ def file_to_map_rows(rows: list, captured: dict,
 
     stages = (tile_len.bit_length() - 1) * tile_len.bit_length() // 2
     k = len(streams)
-    add_row(rows, f"tile_sort_{tag}", _CSRC + "tile_sort.cu",
+    add_row(rows, name, _CSRC + "tile_sort.cu",
             _TPU + "tile_sort_kernel.py:132", dkey,
             gpu_ms(lambda: kernels.tile_sort(streams, tile_len,
                                              num_keys=num_keys), flush),
@@ -2975,9 +3004,6 @@ def file_to_map_rows(rows: list, captured: dict,
             8.0 * k * n, (4.0 + 2 * k) * stages * (n // 2),
             library_ms=gpu_ms(library_sort, flush, reps=5),
             path=path, counter="tile_sort")
-
-    compaction_row(rows, *captured["compact"], f"blockwise_compact_{tag}",
-                   path, flush)
 
 
 def compaction_row(rows: list, cols: list, keep: torch.Tensor, name: str,
@@ -3759,6 +3785,745 @@ def phase_path_reproject(smi: str, device=None) -> None:
         "card": smi}), flush=True)
 
 
+# ---- the distributed layer -----------------------------------------------------
+
+DIST_SIZE = 4                 # world (b): four ranks sharing the one card
+DIST_PIPE_SCANS = 3           # cut from 4 for the run's time: PERF.md
+DIST_DIR = "_distributed"     # under the checkout; removed after the phase
+DIST_AGREE_M = 1e-4           # world (b) against (a): replicated ICP, poses
+DIST_HALO_AGREE_M = 2e-2      # partitioned ICP and pipeline (dryrun's bound)
+#: the kernel counters a step's launches are read from
+DIST_COUNTERS = ("tile_sort", "fused_sorted_voxel_reduce_quantized",
+                 "blockwise_compact", "window_fit_moments")
+
+
+def dist_config(**overrides) -> dict:
+    """The phase's sizes: those of the single-card paths (the main path's
+    batch in 8192 tiles, the normals surface, the trajectory's scans, the
+    pose-graph sweep's circle graph, 2**20-point LAS files); the tests
+    rehearse it with small ones.  ``device`` None is the card, ``backend``
+    None NCCL on it."""
+    cfg = {"n": N, "ztiles": ZTILES, "xtiles": XTILES, "normals_n":
+           NORMALS_N, "scan_n": TRAJ_N, "scene_size": TRAJ_SIZE,
+           "loop": TRAJ_SCANS, "pipe_scans": DIST_PIPE_SCANS,
+           "icp_voxel": REG_VOXEL,
+           "icp_iters": 20, "halo": 512, "capacity": 4.0,
+           "pose": {"dense": 1024, "cg": 1024, "cg_large": 20000},
+           "pose_iters": POSE_ITERS, "read_n": 1 << 20, "read_files": 4,
+           "cross_n": 1 << 16, "device": None, "backend": None}
+    cfg.update(overrides)
+    return cfg
+
+
+def _np_of(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def prepare_distributed(work: Path, cfg: dict, wbatch: PointBatch,
+                        surface: np.ndarray) -> dict:
+    """Write the ranks' inputs under ``work`` and compute the single-device
+    references on ``cfg["device"]``: the batch's bounds, path B (ii) with
+    the sharded origin, the one-shot voxelization, the ICP pair's
+    single-device ICP and truth, the dense pose graph, the pipeline over
+    the same scans."""
+    work.mkdir(parents=True, exist_ok=True)
+    dev = resolve_device(cfg["device"])
+    n = wbatch.capacity
+    tick = time.perf_counter()
+    for name in (POS, INT, CLS):
+        np.save(work / f"wbatch_{name}.npy", _np_of(wbatch.data[name]))
+    np.save(work / "surface.npy", surface)
+    refs = {"n": n, "normals_n": len(surface)}
+    aabb = algorithms.calculate_bounds(wbatch)
+    refs["bounds"] = (aabb.min, aabb.max)
+    bmin = torch.from_numpy(aabb.min.astype(np.float32)).to(dev)
+    tiles = cfg["ztiles"] * cfg["xtiles"]
+    q = path_quantized_internal(wbatch, bmin, tiles)
+    one = voxel_downsample(wbatch, LEAF, semantics="floor")
+    for key, vb in (("quantized", q), ("merged", one)):
+        c = int(vb.count.item())
+        refs[key] = {k: _np_of(vb.data[k][:c]) for k in (POS, INT, CLS)}
+    del q, one
+    refs["positions_sorted"] = _rows_sorted(_np_of(wbatch.data[POS]))
+    sec = {"voxel_references": time.perf_counter() - tick}
+    tick = time.perf_counter()
+
+    poses = trajectory_poses(cfg["loop"])
+    scans = [trajectory_scan(i, poses, n=cfg["scan_n"],
+                             size=cfg["scene_size"])
+             for i in range(cfg["pipe_scans"])]
+    np.save(work / "scans.npy", np.stack(scans))
+    down = RegistrationPipeline(voxel_size=cfg["icp_voxel"], device=dev)
+    src, tgt = down._downsample(scans[1]), down._downsample(scans[0])
+    anchor = tgt.min(axis=0)
+    # the truth, scan 1's frame into scan 0's, in the anchored frame
+    r0, t0 = poses[0][0], poses[1][0]
+    rot = r0.T @ poses[0][1]
+    trans = r0.T @ (poses[1][1] - t0) + rot @ anchor - anchor
+    refs["icp_truth"] = (rot, trans)
+    clouds = {"source": src - anchor, "target": tgt - anchor,
+              # scan 0's keyframe moved into scan 1's frame: the pair on
+              # which point-to-point ICP can meet the truth (fresh draws
+              # bias it; see PERF.md)
+              "moved": (tgt - anchor - trans) @ rot}
+    for name, c in clouds.items():
+        np.save(work / f"icp_{name}.npy", c.astype(np.float32))
+    refs["icp_points"] = (len(src), len(tgt))
+    sec["scans"] = time.perf_counter() - tick
+    tick = time.perf_counter()
+    on = {k: torch.from_numpy(c.astype(np.float32)).to(dev)
+          for k, c in clouds.items()}
+    for name, plane in (("icp", False), ("icp_plane", True)):
+        res = icp(on["source"], on["target"], iterations=cfg["icp_iters"],
+                  point_to_plane=plane)
+        refs[name] = (_np_of(res.rotation), _np_of(res.translation))
+    sec["icp"] = time.perf_counter() - tick
+    tick = time.perf_counter()
+
+    graph, _ = circle_graph(cfg["pose"]["dense"], device=dev)
+    opt, _ = optimize_pose_graph(graph, iterations=cfg["pose_iters"])
+    refs["pose_dense"] = _np_of(opt.translations)
+
+    pipe = RegistrationPipeline(voxel_size=cfg["icp_voxel"],
+                                keyframe_distance=0.05,
+                                icp_iterations=cfg["icp_iters"], device=dev)
+    for scan in scans:
+        pipe.add_scan(scan)
+    refs["pipeline"] = (np.stack([kf.rotation for kf in pipe.keyframes]),
+                        pipe.trajectory())
+    refs["poses"] = (poses[0][:cfg["pipe_scans"]],
+                     poses[1][:cfg["pipe_scans"]])
+    sec["pose_graph_and_pipeline"] = time.perf_counter() - tick
+    tick = time.perf_counter()
+
+    survey = make_survey(cfg["read_n"] * cfg["read_files"])
+    paths = []
+    for i in range(cfg["read_files"]):
+        path = work / f"survey_{i}.las"
+        write_all(survey.slice(i * cfg["read_n"], (i + 1) * cfg["read_n"]),
+                  path)
+        paths.append(str(path))
+    refs["read_paths"] = paths
+    sec["las_files"] = time.perf_counter() - tick
+    refs["seconds"] = sec
+    return refs
+
+
+def _rows_sorted(pos: np.ndarray) -> np.ndarray:
+    """The rows of ``pos`` in lexicographic order of their bit patterns
+    (a multiset's canonical form)."""
+    bits = np.ascontiguousarray(pos).view(np.int32)
+    return pos[np.lexsort(bits.T[::-1])]
+
+
+def load_prebuilt() -> tuple:
+    """Load the kernels the first process built (no ``nvcc`` here: every
+    library must already be there).  Returns ``(seconds, sources)``."""
+    t0 = time.perf_counter()
+    missing = [s for s in _build.SOURCES if not _build._target(s).exists()]
+    if missing:
+        raise AssertionError(f"kernels {missing} not built before the "
+                             f"ranks started")
+    _build.build_all()
+    return time.perf_counter() - t0, sorted(_build.SOURCES)
+
+
+@contextlib.contextmanager
+def capturing(captured: dict):
+    """Record the first inputs the distributed path hands K4, K3'q, the
+    merge's K5 and K6 (for their kernel rows)."""
+    def first(name, fn):
+        def run(*a, **kw):
+            if name not in captured:
+                captured[name] = (tuple(
+                    x.clone() if isinstance(x, torch.Tensor) else
+                    [s.clone() for s in x] if isinstance(x, list) else x
+                    for x in a), dict(kw))
+            return fn(*a, **kw)
+        return run
+    saved = (voxel_mod.tile_sort, voxel_mod.fused_sorted_voxel_reduce_rows,
+             merge_mod.compact_columns, normals_mod.window_fit_moments)
+    voxel_mod.tile_sort = first("tile_sort", saved[0])
+    voxel_mod.fused_sorted_voxel_reduce_rows = first("reduce", saved[1])
+    merge_mod.compact_columns = first("compact", saved[2])
+    normals_mod.window_fit_moments = first("window_fit", saved[3])
+    try:
+        yield captured
+    finally:
+        (voxel_mod.tile_sort, voxel_mod.fused_sorted_voxel_reduce_rows,
+         merge_mod.compact_columns, normals_mod.window_fit_moments) = saved
+
+
+def positions_batch(pos: np.ndarray) -> PointBatch:
+    """A CPU batch of f32 positions, every row valid."""
+    schema = PointSchema.from_attributes([att.POSITION_3D])
+    return PointBatch.from_columns(
+        schema, {POS: torch.from_numpy(np.ascontiguousarray(
+            pos, np.float32))}, device="cpu")
+
+
+def _dist_inputs(work: Path):
+    cols = {k: torch.from_numpy(np.load(work / f"wbatch_{k}.npy"))
+            for k in (POS, INT, CLS)}
+    schema = PointSchema.from_attributes(
+        [att.POSITION_3D, att.INTENSITY, att.CLASSIFICATION])
+    return PointBatch.from_columns(schema, cols, device="cpu")
+
+
+def distributed_world(rank: int, size: int, work: str, cfg: dict,
+                      capture: dict = None) -> dict:
+    """Rank ``rank`` of a world of ``size``: every entry point of the
+    distributed layer on the mesh of the whole world, at ``cfg``'s sizes,
+    each step's launches (K3'q, K4, K5, K6), collectives and seconds
+    recorded.  The steps that take milliseconds run once for the gates and
+    once timed; ICP, pose graph, read and pipeline run once, timed.
+    Returns what :func:`gate_distributed` checks and the phase prints:
+    this rank's shards, the replicated results, the counts and times."""
+    work = Path(work)
+    dev = resolve_device(cfg["device"])
+    out = {"rank": rank, "size": size, "seconds": {}, "launches": {},
+           "collectives": {}}
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        out["build_s"], _ = load_prebuilt()
+    mesh = parallel.make_mesh(size, device=dev, backend=cfg["backend"])
+    out["backend"] = mesh.backend
+    wb = _dist_inputs(work)
+    surface = np.load(work / "surface.npy")
+    tiles = cfg["ztiles"] * cfg["xtiles"]
+    halo = cfg["halo"]
+
+    def step(name, fn, again: bool = False):
+        parallel.reset_collective_counts()
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        sec = time.perf_counter() - t0
+        after = kernels.launch_counts()
+        out["launches"][name] = {c: after[c] - before[c]
+                                 for c in DIST_COUNTERS}
+        out["collectives"][name] = parallel.collective_counts()
+        if again:
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            sec = time.perf_counter() - t0
+        out["seconds"][name] = sec
+        return res
+
+    shard = parallel.shard_batch(wb, mesh)
+    pos_only = parallel.shard_batch(PointBatch(
+        {POS: wb.data[POS]}, wb.count, wb.schema, {}), mesh)
+    nshard = parallel.shard_batch(positions_batch(surface), mesh)
+    qkw = dict(grid_bits=10, position_quantization_bits=QBITS,
+               sort_tiles=tiles // size)
+
+    def partition():
+        p = parallel.morton_partition(pos_only, mesh, capacity_factor=size,
+                                      sort_local=True)
+        return p, parallel.halo_exchange(p[0], p[1], mesh, halo)
+    # the steps that take milliseconds: gated, then timed
+    cheap = {
+        "sharded_bounds": lambda: parallel.sharded_bounds(shard, mesh),
+        "sharded_voxel_downsample": lambda: parallel.sharded_voxel_downsample(
+            shard, mesh, LEAF, **qkw),
+        "sharded_voxel_downsample_merged":
+            lambda: parallel.sharded_voxel_downsample_merged(
+                shard, mesh, LEAF, mode_runs=True),
+        "morton_partition_halo": partition,
+        "distributed_normals": lambda: parallel.distributed_normals(
+            nshard, mesh, NORMALS_K, window=NORMALS_WINDOW)}
+    with (capturing(capture) if capture is not None
+          else contextlib.nullcontext()):
+        got = {name: step(name, fn, again=True)
+               for name, fn in cheap.items()}
+    (mn, mx), (vox, vcounts), (merged, maux), \
+        ((part, pcounts, pdropped), (hcols, hcounts)), \
+        (npart, nrm, _, ncounts, ndropped) = got.values()
+    del got
+    out["bounds"] = (_np_of(mn), _np_of(mx))
+    nq = int(vcounts[rank])
+    out["quantized"] = {"counts": _np_of(vcounts),
+                        **{k: _np_of(vox.data[k][:nq])
+                           for k in (POS, INT, CLS)}}
+    if rank == 0:
+        nm = int(merged.count.item())
+        out["merged"] = {"points": int(maux["counts"].sum()),
+                         **{k: _np_of(merged.data[k][:nm])
+                            for k in (POS, INT, CLS)}}
+    del merged, maux, vox
+    c = int(pcounts[rank])
+    out["partition"] = {"counts": _np_of(pcounts),
+                        "dropped": _np_of(pdropped),
+                        "pos": _np_of(part.data[POS][:c]),
+                        "halo_counts": _np_of(hcounts),
+                        "halo_pos": _np_of(hcols[POS])}
+    cn = int(ncounts[rank])
+    npos = _np_of(npart.data[POS][:cn])
+    out["normals"] = {"n": cn, "dropped": _np_of(ndropped),
+                      "within_6deg": within_degrees(_np_of(nrm[:cn]), npos)
+                      * cn}
+    del part, hcols, npart, nrm
+
+    src, tgt, moved = (torch.from_numpy(np.load(work / f"icp_{k}.npy"))
+                       for k in ("source", "target", "moved"))
+    tgt_dev = tgt.to(dev)
+
+    def pose_of(r):
+        return {"rotation": _np_of(r.rotation),
+                "translation": _np_of(r.translation),
+                "inliers": int(r.num_inliers), "rmse": float(r.rmse)}
+
+    def rows_of(c):
+        """This rank's rows of the source padded to a multiple of size."""
+        per = -(-c.shape[0] // size)
+        pad = torch.cat([c, c.new_zeros((per * size - c.shape[0], 3))])
+        return pad[rank * per:(rank + 1) * per].to(dev), c.shape[0]
+    for name, c in (("icp", src), ("icp_moved", moved)):
+        rows, count = rows_of(c)
+        res = step(f"distributed_{name}", lambda: parallel.distributed_icp(
+            rows, tgt_dev, mesh, source_count=count,
+            iterations=cfg["icp_iters"]))
+        out[name] = pose_of(res)
+
+    clouds = [parallel.shard_batch(positions_batch(p.numpy()), mesh)
+              for p in (src, tgt)]
+    res, dropped = step("distributed_icp_partitioned",
+                        lambda: parallel.distributed_icp_partitioned(
+                            *clouds, mesh, halo=halo,
+                            capacity_factor=cfg["capacity"],
+                            iterations=cfg["icp_iters"],
+                            point_to_plane=True))
+    out["icp_partitioned"] = {**pose_of(res), "dropped": int(dropped)}
+
+    out["pose_graph"] = {}
+    for name, poses in cfg["pose"].items():
+        solver = "dense" if name == "dense" else "cg"
+        graph, true_t = circle_graph(poses, device=dev)
+        opt, costs = step(f"pose_graph_{name}",
+                          lambda: parallel.distributed_pose_graph(
+                              graph, mesh, iterations=cfg["pose_iters"],
+                              solver=solver,
+                              **(POSE_CG_KW if solver == "cg" else {})))
+        out["pose_graph"][name] = {
+            "poses": poses, "costs": _np_of(costs),
+            "translations": _np_of(opt.translations),
+            "ate_m": float(np.linalg.norm(_np_of(opt.translations) - true_t,
+                                          axis=1).mean())}
+
+    paths = sorted(str(p) for p in work.glob("survey_*.las"))
+    got = step("sharded_read_all",
+               lambda: parallel.sharded_read_all(paths, mesh))
+    host = HostPointBuffer.concat([read_all(p) for p in paths])
+    per = got.capacity          # this rank's rows of the padded whole
+    want = host.slice(min(rank * per, len(host)),
+                      min((rank + 1) * per, len(host)))
+    nr = int(got.count.item())
+    out["read"] = {"rows": nr, "device": str(got.device), "equal": (
+        nr == len(want) and all(np.array_equal(
+            _np_of(got.data[k][:nr]),
+            want.columns[k].astype(_np_of(got.data[k]).dtype))
+            for k in want.columns))}
+    del got, host
+
+    scans = np.load(work / "scans.npy", mmap_mode="r")
+
+    def pipeline():
+        pipe = RegistrationPipeline(voxel_size=cfg["icp_voxel"],
+                                    keyframe_distance=0.05,
+                                    icp_iterations=cfg["icp_iters"],
+                                    mesh=mesh)
+        for scan in scans:
+            pipe.add_scan(np.asarray(scan))
+        return pipe
+    pipe = step("pipeline", pipeline)
+    out["pipeline"] = (np.stack([kf.rotation for kf in pipe.keyframes]),
+                       pipe.trajectory())
+
+    if size > 1 and dev.type == "cuda" and cfg["cross_n"]:
+        # the card's partition against the same ranks' gloo partition on
+        # the CPU, bit for bit
+        cpu_mesh = parallel.make_mesh(size, device="cpu")
+        cut = PointBatch({POS: wb.data[POS][:cfg["cross_n"]]},
+                         torch.tensor(cfg["cross_n"], dtype=torch.int32),
+                         wb.schema, {})
+        on = [parallel.morton_partition(parallel.shard_batch(cut, m), m,
+                                        capacity_factor=size,
+                                        sort_local=True)
+              for m in (mesh, cpu_mesh)]
+        out["cross_cpu"] = {"n": cfg["cross_n"], "equal": all(
+            torch.equal(x.cpu(), y) for x, y in
+            ((on[0][0].data[POS], on[1][0].data[POS]),
+             (on[0][1], on[1][1]), (on[0][2], on[1][2])))}
+    if dev.type == "cuda":
+        # device busy over one more pass of the cheap steps, traced on
+        # rank 0 (every rank runs the pass: its collectives need them all)
+        def one_pass(i=0):
+            for fn in cheap.values():
+                fn()
+        if rank == 0:
+            prof = gpu_profile(one_pass, steps=1, warm=False)
+            out["busy"] = {"traced_ms": prof["traced_wall_ms_per_step"],
+                           "busy_ms": prof["device_busy_ms_per_step"],
+                           "launches": prof["device_launches_per_step"]}
+        else:
+            one_pass()
+    return out
+
+
+def _max_diff(a, b) -> float:
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def _rotation_deg(a: np.ndarray, b: np.ndarray) -> float:
+    chord = np.linalg.norm(a - b) / np.sqrt(8.0)
+    return float(np.rad2deg(2.0 * np.arcsin(min(chord, 1.0))))
+
+
+def gate_distributed(world: list, refs: dict, cfg: dict) -> dict:
+    """The phase's gates on one world's ranks against the single-device
+    references (see the docstring of :func:`phase_path_distributed`).
+    Raises on the first that fails; returns what it measured."""
+    size = len(world)
+    cuda = resolve_device(cfg["device"]).type == "cuda"
+    g = {}
+
+    def fail(what, detail):
+        raise AssertionError(f"path_distributed ({size} ranks): {what}: "
+                             f"{detail}")
+
+    for r in world:
+        if not all(np.array_equal(np.asarray(x, np.float64), y)
+                   for x, y in zip(r["bounds"], refs["bounds"])):
+            fail("sharded_bounds", f"{r['bounds']} != {refs['bounds']}")
+
+    # sharded voxelize (path B (ii) per shard) = path B (ii) with the
+    # shards' origin, shards in rank order
+    q = {k: np.concatenate([r["quantized"][k] for r in world])
+         for k in (POS, INT, CLS)}
+    ref = refs["quantized"]
+    if len(q[POS]) != len(ref[POS]):
+        fail("sharded_voxel_downsample", f"{len(q[POS])} voxels, single "
+             f"device {len(ref[POS])}")
+    for k in (INT, CLS):
+        if not np.array_equal(q[k], ref[k]):
+            fail("sharded_voxel_downsample", f"column {k} differs")
+    g["quantized_voxels"] = len(q[POS])
+    g["quantized_max_err"] = _max_diff(q[POS], ref[POS])
+    if not np.array_equal(q[POS].view(np.int32), ref[POS].view(np.int32)):
+        fail("sharded_voxel_downsample", f"centroids differ by "
+             f"{g['quantized_max_err']}")
+
+    m, ref = world[0]["merged"], refs["merged"]
+    if len(m[POS]) != len(ref[POS]) or m["points"] != refs["n"]:
+        fail("sharded_voxel_downsample_merged",
+             f"{len(m[POS])} voxels of {m['points']} points, single device "
+             f"{len(ref[POS])}")
+    if not np.array_equal(m[CLS], ref[CLS]):
+        fail("sharded_voxel_downsample_merged", "Classification differs")
+    g["merged_intensity_max_diff"] = _max_diff(m[INT], ref[INT])
+    g["merged_centroid_max_err"] = _max_diff(m[POS], ref[POS])
+    if not (g["merged_intensity_max_diff"] <= 1 and np.allclose(
+            m[POS], ref[POS], rtol=1e-5, atol=1e-5)):
+        fail("sharded_voxel_downsample_merged", g)
+    g["merged_voxels"] = len(m[POS])
+
+    # partition and halo
+    counts = world[0]["partition"]["counts"]
+    shards = [r["partition"]["pos"] for r in world]
+    if counts.sum() != refs["n"] or any(r["partition"]["dropped"].any()
+                                        for r in world):
+        fail("morton_partition", f"counts {counts}, dropped "
+             f"{[r['partition']['dropped'] for r in world]}")
+    if not np.array_equal(_rows_sorted(np.concatenate(shards)),
+                          refs["positions_sorted"]):
+        fail("morton_partition", "the points are not each present once")
+    pmin = refs["bounds"][0].astype(np.float32)
+    ext = np.float32(max((refs["bounds"][1] - refs["bounds"][0]).max(),
+                         1e-9))
+    keys = [_morton_u64(np.clip((s - pmin) / ext * (1 << 20), 0,
+                                (1 << 20) - 1).astype(np.uint64))
+            for s in shards]
+    for d, kk in enumerate(keys):
+        if np.any(kk[1:] < kk[:-1]):
+            fail("morton_partition", f"shard {d} is not sorted")
+    shift = np.uint64(60 - 12)
+    ranges = [(kk.min(), kk.max()) for kk in keys if len(kk)]
+    for lo, hi in zip(ranges[:-1], ranges[1:]):
+        if (lo[1] >> shift) > (hi[0] >> shift) + np.uint64(1):
+            fail("morton_partition", "shard key ranges out of order")
+    halo = cfg["halo"]
+    for d, r in enumerate(world):
+        left, right = shards[(d - 1) % size], shards[(d + 1) % size]
+        ln, rn = min(len(left), halo), min(len(right), halo)
+        hp = r["partition"]["halo_pos"]
+        if tuple(r["partition"]["halo_counts"]) != (ln, rn) \
+                or not np.array_equal(hp[:ln], left[len(left) - ln:]) \
+                or not np.array_equal(hp[halo:halo + rn], right[:rn]):
+            fail("halo_exchange", f"rank {d}'s halo rows")
+    g["partition_counts"] = counts.tolist()
+
+    share = sum(r["normals"]["within_6deg"] for r in world) \
+        / sum(r["normals"]["n"] for r in world)
+    g["normals_within_6deg"] = share
+    if sum(r["normals"]["n"] for r in world) != refs["normals_n"] \
+            or any(r["normals"]["dropped"].any()
+                                   for r in world) or not share >= 0.99:
+        fail("distributed_normals", f"{share} within 6°")
+
+    # registration: truth, the single device, replicated on every rank
+    # ICP: point-to-point on the scan pair = the single device (the truth
+    # reported: fresh draws bias point-to-point), on the moved keyframe =
+    # the truth; partitioned point-to-plane = the truth and the single
+    # device's point-to-plane
+    rot_t, t_t = refs["icp_truth"]
+    for name, single, bound, truth in (
+            ("icp", "icp", 5e-3, False), ("icp_moved", None, None, True),
+            ("icp_partitioned", "icp_plane", DIST_HALO_AGREE_M, True)):
+        p = world[0][name]
+        e_t = float(np.linalg.norm(p["translation"] - t_t))
+        e_r = _rotation_deg(p["rotation"], rot_t)
+        g[name] = {"error_m": e_t, "error_deg": e_r, "inliers": p["inliers"]}
+        if single is not None:
+            g[name]["vs_single"] = max(
+                _max_diff(p["translation"], refs[single][1]),
+                _max_diff(p["rotation"], refs[single][0]))
+            if not g[name]["vs_single"] <= bound:
+                fail(name, g[name])
+        if truth and not (e_t <= 0.02 and e_r <= 0.2):
+            fail(name, g[name])
+        if p.get("dropped", 0):
+            fail(name, f"dropped {p['dropped']}")
+        for r in world[1:]:
+            if _max_diff(r[name]["translation"], p["translation"]):
+                fail(name, "not replicated")
+    pg = world[0]["pose_graph"]
+    for name, p in pg.items():
+        if not p["costs"][-1] < p["costs"][0]:
+            fail(f"pose_graph {name}", f"costs {p['costs']}")
+    g["pose_dense_vs_single"] = _max_diff(pg["dense"]["translations"],
+                                          refs["pose_dense"])
+    g["pose_cg_vs_dense"] = _max_diff(pg["cg"]["translations"],
+                                      pg["dense"]["translations"])
+    g["pose_ate_m"] = {k: p["ate_m"] for k, p in pg.items()}
+    if not (g["pose_dense_vs_single"] <= 1e-6
+            and g["pose_cg_vs_dense"] <= 1e-6):
+        fail("distributed_pose_graph", g)
+    if not all(r["read"]["equal"] and r["read"]["device"] ==
+               str(resolve_device(cfg["device"])) for r in world):
+        fail("sharded_read_all", [r["read"] for r in world])
+    rots, trans = world[0]["pipeline"]
+    g["pipeline"] = pose_errors(rots, trans, refs["poses"])
+    g["pipeline_vs_single_m"] = _max_diff(trans, refs["pipeline"][1])
+    if not (g["pipeline"]["mean_m"] <= TRAJ_MEAN_M
+            and g["pipeline"]["worst_m"] <= TRAJ_WORST_M
+            and g["pipeline"]["rotation_deg"] <= TRAJ_ROT_DEG
+            and g["pipeline_vs_single_m"] <= DIST_HALO_AGREE_M):
+        fail("RegistrationPipeline(mesh=)", g)
+    if cuda:
+        for r in world:
+            la = r["launches"]
+            q_l = la["sharded_voxel_downsample"]
+            if q_l["tile_sort"] != 1 \
+                    or q_l["fused_sorted_voxel_reduce_quantized"] != 1:
+                fail("sharded_voxel_downsample", f"launches {q_l}")
+            if la["sharded_voxel_downsample_merged"][
+                    "blockwise_compact"] < 1:
+                fail("sharded_voxel_downsample_merged", "K5 not launched")
+            if la["distributed_normals"]["window_fit_moments"] != 1:
+                fail("distributed_normals", f"launches "
+                     f"{la['distributed_normals']}")
+        if size > 1 and not all(r["cross_cpu"]["equal"] for r in world):
+            fail("morton_partition", "the card's partition differs from "
+                 "the CPU's")
+    return g
+
+
+def compare_worlds(a: list, b: list) -> dict:
+    """World (b) against world (a): partition and merged voxels equal as
+    sets and exactly in their integer columns; replicated ICP and the pose
+    graph within ``DIST_AGREE_M``; partitioned ICP and the pipeline within
+    ``DIST_HALO_AGREE_M``."""
+    out = {}
+    pa = a[0]["partition"]["pos"]
+    pb = np.concatenate([r["partition"]["pos"] for r in b])
+    out["partition_in_the_same_order"] = bool(np.array_equal(pa, pb))
+    if not np.array_equal(_rows_sorted(pa), _rows_sorted(pb)):
+        raise AssertionError("path_distributed: the worlds' partitions "
+                             "differ")
+    ma, mb = a[0]["merged"], b[0]["merged"]
+    if len(ma[POS]) != len(mb[POS]) or not all(
+            np.array_equal(ma[k], mb[k]) for k in (INT, CLS)):
+        raise AssertionError("path_distributed: the worlds' merged voxels "
+                             "differ")
+    out["merged_centroid_max_diff"] = _max_diff(ma[POS], mb[POS])
+    for name, bound in (("icp", DIST_AGREE_M), ("icp_moved", DIST_AGREE_M),
+                        ("icp_partitioned", DIST_HALO_AGREE_M)):
+        out[name] = _max_diff(a[0][name]["translation"],
+                              b[0][name]["translation"])
+        if not out[name] <= bound:
+            raise AssertionError(f"path_distributed: {name} differs across "
+                                 f"worlds by {out[name]} m")
+    out["pose_graph"] = max(_max_diff(a[0]["pose_graph"][k]["translations"],
+                                      b[0]["pose_graph"][k]["translations"])
+                            for k in a[0]["pose_graph"])
+    out["pipeline"] = _max_diff(a[0]["pipeline"][1], b[0]["pipeline"][1])
+    if not (out["pose_graph"] <= DIST_AGREE_M
+            and out["pipeline"] <= DIST_HALO_AGREE_M):
+        raise AssertionError(f"path_distributed: worlds differ: {out}")
+    return out
+
+
+def distributed_rows(rows: list, captured: dict) -> None:
+    """K4, K3'q, the merge's K5 and K6 at the shapes one rank of the
+    one-rank world gave them, each held against its plain version, timed,
+    added as rows of ``path_distributed``."""
+    path = "path_distributed"
+    (streams, tile_len), kw = captured["tile_sort"]
+    dev = streams[0].device
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    tile_sort_row(rows, streams, tile_len, kw.get("num_keys", 1),
+                  "tile_sort_distributed", path, flush)
+
+    args, kw = captured["reduce"]
+    kpos, kword, kcount = vr.fused_sorted_voxel_reduce_rows(*args, **kw)
+    ppos, pword, pcount = vr.fused_sorted_voxel_reduce_plain(*args, **kw)
+    torch.cuda.synchronize()
+    nv = int(kcount.item())
+    err = (kpos - ppos).abs().max().item()
+    if nv != int(pcount.item()) or not torch.equal(u32_carrier(kword),
+                                                   pword) or err != 0.0:
+        raise AssertionError("fused_sorted_voxel_reduce (quantized) on the "
+                             "distributed path's inputs differs from its "
+                             "plain version")
+    del ppos, pword
+    n = args[0].shape[0]
+    tl = args[9]
+    add_row(rows, "fused_sorted_voxel_reduce_quantized_distributed",
+            _CSRC + "voxel_reduce.cu", _TPU + "voxel_reduce_kernel.py:415",
+            err, gpu_ms(lambda: vr.fused_sorted_voxel_reduce_rows(
+                *args, **kw), flush),
+            gpu_ms(lambda: vr.fused_sorted_voxel_reduce_plain(*args, **kw),
+                   flush, reps=5),
+            12.0 * n + 16.0 * n + 4.0 * (n // tl), 24.0 * n + 40.0 * nv,
+            path=path, counter="fused_sorted_voxel_reduce_quantized")
+
+    (cols, keep), _ = captured["compact"]
+    compaction_row(rows, list(cols), keep, "blockwise_compact_distributed",
+                   path, flush)
+
+    (sp, pp, k, w), _ = captured["window_fit"]
+    got = wf.window_fit_moments(sp, pp, k, w)
+    want = wf.window_fit_moments_plain(sp, pp, k, w)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, want)):
+        raise AssertionError(f"window_fit_moments on distributed_normals' "
+                             f"inputs differs by {err}")
+    nq = sp.shape[0]
+    selected = float(got[0].sum().item())
+    add_row(rows, "window_fit_moments_distributed", _CSRC + "window_fit.cu",
+            _TPU + "window_fit_kernel.py:214", err,
+            gpu_ms(lambda: wf.window_fit_moments(sp, pp, k, w), flush),
+            gpu_ms(lambda: wf.window_fit_moments_plain(sp, pp, k, w), flush,
+                   warmup=1, reps=3),
+            68.0 * nq + 24.0 * w,
+            nq * ((2.0 * w + 1) * 10 + 2.0 * k * k) + 20.0 * selected,
+            path=path, counter="window_fit_moments")
+
+
+def world_line(world: list, name: str, gates: dict, smi: str) -> dict:
+    """The phase's line for one world: rank 0's seconds, launches and
+    collectives per step, the slowest rank's seconds, host staging, build
+    seconds per rank, device busy on rank 0, the gates' readings."""
+    r0 = world[0]
+    steps = list(r0["seconds"])
+    return {
+        "phase": "path_distributed", "world": name, "ranks": len(world),
+        "backend": r0["backend"],
+        "seconds": r0["seconds"],
+        "seconds_slowest_rank": {s: max(r["seconds"][s] for r in world)
+                                 for s in steps},
+        "launches_rank0": r0["launches"],
+        "collective_bytes": {s: {c: v["bytes"] for c, v in
+                                 r0["collectives"][s].items()
+                                 if c != "staged"} for s in steps},
+        "collective_calls": {s: sum(v["calls"] for c, v in
+                                    r0["collectives"][s].items()
+                                    if c != "staged") for s in steps},
+        "staged_bytes": {s: sum(r0["collectives"][s]["staged"].values())
+                         for s in steps},
+        "build_seconds": [r.get("build_s") for r in world],
+        "device_busy_rank0": r0.get("busy"),
+        "cross_cpu": [r.get("cross_cpu") for r in world],
+        "gates": gates, "card": smi}
+
+
+def phase_path_distributed(rows: list, smi: str, wbatch: PointBatch,
+                           surface: np.ndarray) -> None:
+    """The distributed layer on the card, twice: (a) a one-rank NCCL world
+    in this process, (b) ``DIST_SIZE`` spawned ranks sharing the card on
+    gloo (host staging counted); both at the single-card paths' sizes,
+    every step gated against the single-device path
+    (:func:`gate_distributed`), (b) against (a) (:func:`compare_worlds`),
+    and the kernels of the path held against their plain versions on
+    world (a)'s inputs (:func:`distributed_rows`)."""
+    t_phase = time.perf_counter()
+    work = Path(__file__).resolve().parent / DIST_DIR
+    cfg = dist_config()
+    try:
+        t0 = time.perf_counter()
+        refs = prepare_distributed(work, cfg, wbatch, surface)
+        prep_s = time.perf_counter() - t0
+        captured = {}
+        t0 = time.perf_counter()
+        parallel.initialize_multihost(f"localhost:{par_spawn.free_port()}",
+                                      1, 0)
+        try:
+            a = [distributed_world(0, 1, str(work), cfg, capture=captured)]
+        finally:
+            dist.destroy_process_group()
+        world_a_s = time.perf_counter() - t0
+        gates_a = gate_distributed(a, refs, cfg)
+        distributed_rows(rows, captured)
+        # a row's launches: one call of every step of world (a), each read
+        # from counts set to 0 just before it and read just after
+        read_launches(rows, "path_distributed", {
+            c: sum(v[c] for v in a[0]["launches"].values())
+            for c in DIST_COUNTERS})
+        del captured
+        print(json.dumps(world_line(a, "a: one-rank NCCL", gates_a, smi)),
+              flush=True)
+        t0 = time.perf_counter()
+        b = par_spawn.run_world(
+            distributed_world, DIST_SIZE, (str(work),
+                                           {**cfg, "backend": "gloo"}),
+            device="cuda", backend="gloo", timeout_s=600.0)
+        world_b_s = time.perf_counter() - t0
+        gates_b = gate_distributed(b, refs, cfg)
+        print(json.dumps(world_line(b, f"b: {DIST_SIZE} ranks sharing the "
+                                       f"card, gloo", gates_b, smi)),
+              flush=True)
+        agree = compare_worlds(a, b)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({
+        "phase": "path_distributed", "worlds_agree": agree,
+        "prepare_seconds": prep_s, "prepare_split": refs["seconds"],
+        "world_a_wall_seconds": world_a_s,
+        "world_b_wall_seconds": world_b_s,
+        "seconds": time.perf_counter() - t_phase,
+        "icp_points": refs["icp_points"], "card": smi}), flush=True)
+
+
 def cg_iteration_ms(graph) -> float:
     """GPU time of one PCG iteration of the pose graph, its host read of
     r·z included: one Gauss-Newton step with 64 CG iterations forced (a
@@ -3812,6 +4577,7 @@ def main() -> int:
     plane = phase_path_segmentation(smi)
     phase_path_hull(smi)
     phase_path_reproject(smi)
+    phase_path_distributed(rows, smi, wbatch, surface)
     if "--profile" in sys.argv[1:]:
         def shift(i):
             return (i % 7) * 1e-6

@@ -6,6 +6,12 @@ plain numpy: the caller turns each JAX array into ``numpy`` (the tests do
 :class:`PointBatch` — with the port's own :class:`PointSchema`, found by
 attribute name — or its own ``PoseGraph``, and go back.  Point clouds cross
 as ``(N, 3)`` numpy.
+
+The distributed layer's state crosses per rank: a JAX array sharded over a
+mesh axis is one global array whose leading axis holds the shards in
+order, and :func:`shards_from_reference` cuts it into the ranks' blocks
+(:func:`shards_to_reference` joins them back); the merge statistics and a
+``MortonPartitionSpec`` have their own pair.
 """
 
 from __future__ import annotations
@@ -24,7 +30,10 @@ from .layout.schema import PointSchema
 __all__ = ["batch_from_reference_arrays", "batch_to_reference_arrays",
            "aux_from_reference", "aux_to_reference",
            "affine_from_reference", "head_args_from_reference",
-           "pose_graph_from_reference", "pose_graph_to_reference"]
+           "pose_graph_from_reference", "pose_graph_to_reference",
+           "shards_from_reference", "shards_to_reference",
+           "aux_shards_from_reference", "spec_from_reference",
+           "spec_to_reference"]
 
 _BUILTIN = {a.name: a for a in att.BUILTIN_ATTRIBUTES}
 
@@ -178,3 +187,60 @@ def pose_graph_to_reference(graph) -> Tuple[np.ndarray, ...]:
             f(graph.edges).astype(np.int32), f(graph.rel_rotations),
             f(graph.rel_translations),
             None if graph.weights is None else f(graph.weights))
+
+
+def shards_from_reference(array, size: int) -> list:
+    """The ``size`` per-rank blocks of a JAX array sharded over its leading
+    axis (global view ``(size·per, ...)``), as numpy."""
+    a = np.asarray(array)
+    if a.shape[0] % size:
+        raise ValueError(f"{a.shape[0]} rows do not split into {size}")
+    return list(np.split(a, size))
+
+
+def shards_to_reference(blocks: Sequence) -> np.ndarray:
+    """The global view of per-rank blocks: their concatenation in rank
+    order, as numpy."""
+    return np.concatenate([np.asarray(b) for b in blocks])
+
+
+def aux_shards_from_reference(aux: Mapping, size: int) -> list:
+    """The per-rank merge statistics of a sharded JAX ``aux`` dict
+    (``sharded_voxel_downsample(with_aux=True)``'s global view) as numpy
+    trees: every leaf cut into its ``size`` blocks, and each run table's
+    ``num_runs`` — one entry a shard in the global view — back to the 0-d
+    counter of a single-device ``aux``.  Feed each to
+    :func:`aux_from_reference`."""
+    def cut(x, key=None):
+        if isinstance(x, Mapping):
+            return [dict(zip(x, vals)) for vals in
+                    zip(*(cut(v, k) for k, v in x.items()))]
+        if isinstance(x, (tuple, list)):
+            return [tuple(vals) for vals in zip(*(cut(v) for v in x))]
+        blocks = shards_from_reference(x, size)
+        return [b.reshape(()) for b in blocks] if key == "num_runs" \
+            else blocks
+
+    return cut(aux)
+
+
+def spec_from_reference(gmin, extent, dest_of_bucket,
+                        device: Optional[Union[str, torch.device]] = None):
+    """The port's :class:`~pasture_tpu_torch.parallel.MortonPartitionSpec`
+    from the numpy arrays of a JAX one (floats keep their dtype, the
+    bucket map becomes int64).  ``device=None`` means the GPU."""
+    from .parallel import MortonPartitionSpec
+
+    dev = resolve_device(device)
+    return MortonPartitionSpec(
+        torch.from_numpy(np.array(gmin)).to(dev),
+        torch.from_numpy(np.array(extent)).to(dev),
+        torch.from_numpy(np.asarray(dest_of_bucket, np.int64)).to(dev))
+
+
+def spec_to_reference(spec) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(gmin, extent, dest_of_bucket)`` of a port spec as numpy, the
+    bucket map int32 as the JAX package keeps it."""
+    return (spec.gmin.detach().cpu().numpy(),
+            spec.extent.detach().cpu().numpy(),
+            spec.dest_of_bucket.detach().cpu().numpy().astype(np.int32))

@@ -12,7 +12,8 @@ ICP odometry and a keyframed pose graph in one object.
 
 Point clouds go to the device as float32 relative to an f64 anchor taken on
 the host; the pose graph, a few poses, is solved in float64 on the same
-device.
+device.  With a mesh (``RegistrationPipeline(mesh=...)``) the alignments
+run distributed over its ranks.
 """
 
 from __future__ import annotations
@@ -54,8 +55,7 @@ class RegistrationPipeline:
     (point-to-plane by default); a new keyframe is spawned when the motion
     exceeds ``keyframe_distance`` or rotates.  :meth:`optimize` runs the
     pose graph over the odometry chain plus any loop closures added with
-    :meth:`add_loop_closure`.  ``device=None`` means the GPU.  ``mesh=``
-    (the JAX package's distributed mode) is not ported yet and raises.
+    :meth:`add_loop_closure`.  ``device=None`` means the GPU.
     """
 
     def __init__(self, voxel_size: float = 0.1,
@@ -63,18 +63,33 @@ class RegistrationPipeline:
                  icp_iterations: int = 20,
                  keyframe_distance: float = 0.5,
                  point_to_plane: bool = True,
-                 mesh=None,
+                 mesh=None, distributed_halo: int = 512,
+                 distributed_capacity_factor: float = 4.0,
                  device: Optional[Union[str, torch.device]] = None) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "RegistrationPipeline(mesh=...) needs the distributed layer "
-                "(parallel/), which is not ported yet")
-        self.device = resolve_device(device)
+        """``mesh`` (opt-in distributed mode): a mesh of
+        :func:`pasture_tpu_torch.parallel.make_mesh` or
+        :func:`~pasture_tpu_torch.parallel.global_mesh`, on whose device
+        the pipeline then runs.  Every rank builds the pipeline and feeds
+        it the same scans; scan-to-keyframe alignment runs
+        :func:`~pasture_tpu_torch.parallel.distributed_icp_partitioned`
+        (both clouds Morton-partitioned, ``distributed_halo`` boundary rows
+        exchanged, ``distributed_capacity_factor`` the partition's budget)
+        instead of single-device :func:`icp`, and raises if a partition
+        dropped points.  Poses come back the same on every rank."""
+        if mesh is not None and device is not None \
+                and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.voxel_size = voxel_size
         self.max_corr = max_correspondence_distance
         self.icp_iterations = icp_iterations
         self.keyframe_distance = keyframe_distance
         self.point_to_plane = point_to_plane
+        self.mesh = mesh
+        self.distributed_halo = distributed_halo
+        self.distributed_capacity_factor = distributed_capacity_factor
         self.keyframes: List[_Keyframe] = []
         self._edges: List[tuple] = []     # (i, j, rel_rot, rel_t)
 
@@ -111,16 +126,45 @@ class RegistrationPipeline:
         return out.data[att.POSITION_3D.name][:n].cpu().numpy().astype(
             np.float64) + anchor[None, :]
 
+    def _batch(self, pos: np.ndarray) -> PointBatch:
+        """This rank's shard of a position cloud (padded to 8 rows)."""
+        from .parallel import shard_batch
+        schema = PointSchema.from_attributes([att.POSITION_3D])
+        cap = max(-(-len(pos) // 8) * 8, 8)
+        col = self._f32(np.pad(pos, [(0, cap - len(pos)), (0, 0)]))
+        return shard_batch(PointBatch(
+            {att.POSITION_3D.name: col},
+            torch.tensor(len(pos), dtype=torch.int32, device=self.device),
+            schema, {}), self.mesh)
+
     def _align(self, src: np.ndarray, tgt: np.ndarray):
-        """One scan-to-keyframe ICP on coordinates relative to the f64
-        target minimum A; the true translation is ``t' + A - R @ A``.
-        Returns ``(rotation, translation)`` as f64 numpy."""
+        """One scan-to-keyframe ICP — single-device, or the partitioned
+        distributed ICP when a mesh was given — on coordinates relative to
+        the f64 target minimum A; the true translation is
+        ``t' + A - R @ A``.  Returns ``(rotation, translation)`` as f64
+        numpy."""
         anchor = np.asarray(tgt, np.float64).min(axis=0)
-        result = icp(self._f32(np.asarray(src, np.float64) - anchor),
-                     self._f32(np.asarray(tgt, np.float64) - anchor),
-                     max_correspondence_distance=self.max_corr,
-                     iterations=self.icp_iterations,
-                     point_to_plane=self.point_to_plane)
+        src_a = np.asarray(src, np.float64) - anchor
+        tgt_a = np.asarray(tgt, np.float64) - anchor
+        if self.mesh is None:
+            result = icp(self._f32(src_a), self._f32(tgt_a),
+                         max_correspondence_distance=self.max_corr,
+                         iterations=self.icp_iterations,
+                         point_to_plane=self.point_to_plane)
+        else:
+            from .parallel import distributed_icp_partitioned
+            result, dropped = distributed_icp_partitioned(
+                self._batch(src_a), self._batch(tgt_a), self.mesh,
+                halo=self.distributed_halo,
+                capacity_factor=self.distributed_capacity_factor,
+                max_correspondence_distance=self.max_corr,
+                iterations=self.icp_iterations,
+                point_to_plane=self.point_to_plane)
+            if int(dropped) != 0:
+                raise RuntimeError(
+                    f"distributed partitioning dropped {int(dropped)} "
+                    f"points — raise capacity_factor / rebalance the "
+                    f"partition")
         rot = result.rotation.cpu().numpy().astype(np.float64)
         t = result.translation.cpu().numpy().astype(np.float64)
         return rot, t + anchor - rot @ anchor

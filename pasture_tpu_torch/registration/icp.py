@@ -145,34 +145,39 @@ def _solve_gn(h: torch.Tensor, b: torch.Tensor, damping: float
     return torch.linalg.solve_triangular(chol.mT, y, upper=True)[:, 0]
 
 
-def _icp_step(source, source_valid, corr_fn, rot, t, max_dist_sq,
-              point_to_plane, damping):
-    moved = transform_points(rot, t, source)
-    matched, d2, nrm = corr_fn(moved)
-    w = (source_valid & (d2 < max_dist_sq)).to(source.dtype)
-
+def _normal_equations(moved, matched, nrm, w, point_to_plane):
+    """The 6x6 H and 6-vector b of one Gauss-Newton step from the moved
+    source rows, their matches (and the matches' normals) and weights."""
     if point_to_plane:
         r = torch.sum((moved - matched) * nrm, dim=1)           # (N,)
         # J_i = [n_i^T, (p_i x n_i)^T] for twist [rho, phi]
         j = torch.cat([nrm, torch.linalg.cross(moved, nrm)], dim=1)
         jw = j * w[:, None]
-        h = jw.T @ j
-        b = jw.T @ r
-    else:
-        r = moved - matched                                      # (N, 3)
-        # J_i = [I, -[p]_x] per residual row
-        eye = torch.eye(3, dtype=source.dtype,
-                        device=source.device).expand(moved.shape[0], 3, 3)
-        j = torch.cat([eye, -skew(moved)], dim=2)                # (N, 3, 6)
-        jw = j * w[:, None, None]
-        h = torch.einsum("nai,naj->ij", jw, j)
-        b = torch.einsum("nai,na->i", jw, r)
+        return jw.T @ j, jw.T @ r
+    r = moved - matched                                          # (N, 3)
+    # J_i = [I, -[p]_x] per residual row
+    eye = torch.eye(3, dtype=moved.dtype,
+                    device=moved.device).expand(moved.shape[0], 3, 3)
+    j = torch.cat([eye, -skew(moved)], dim=2)                    # (N, 3, 6)
+    jw = j * w[:, None, None]
+    return (torch.einsum("nai,naj->ij", jw, j),
+            torch.einsum("nai,na->i", jw, r))
 
+
+def _pose_update(h, b, rot, t, damping):
+    """The pose after the damped Gauss-Newton step of ``(h, b)``."""
     xi = -_solve_gn(h, b, damping)
     d_rot, d_t = se3_exp(xi)
-    new_rot = d_rot @ rot
-    new_t = d_rot @ t + d_t
+    return d_rot @ rot, d_rot @ t + d_t
 
+
+def _icp_step(source, source_valid, corr_fn, rot, t, max_dist_sq,
+              point_to_plane, damping):
+    moved = transform_points(rot, t, source)
+    matched, d2, nrm = corr_fn(moved)
+    w = (source_valid & (d2 < max_dist_sq)).to(source.dtype)
+    h, b = _normal_equations(moved, matched, nrm, w, point_to_plane)
+    new_rot, new_t = _pose_update(h, b, rot, t, damping)
     nin = torch.sum(w)
     rmse = torch.sqrt(torch.sum(torch.where(w > 0, d2, torch.zeros_like(d2))
                                 * w) / torch.clamp_min(nin, 1.0))

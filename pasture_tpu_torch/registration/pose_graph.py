@@ -124,14 +124,17 @@ def build_normal_equations(rotations, translations, edges, rel_rotations,
 
 
 def _pcg_solve(diag_chol, hij, hij_t, i_idx, j_idx, diag, b, cg_iterations,
-               tol):
+               tol, reduce=None):
     """Block-sparse PCG for H xi = b.
 
     ``diag`` (N, 6, 6): damped and anchored diagonal blocks; ``diag_chol``
     their Cholesky factors (the block-Jacobi preconditioner); ``hij``
     (E, 6, 6): weighted off-diagonal blocks ja^T W jb of edges (i, j),
     ``hij_t`` their transposes.  Stops after ``cg_iterations`` or when
-    r·z falls to ``tol²`` of its start, read on the host each iteration."""
+    r·z falls to ``tol²`` of its start, read on the host each iteration.
+    ``reduce``, where given, sums the edges' (N, 6) share of each product
+    H·x over the ranks that hold the other edges (``None``: all edges are
+    here)."""
     rows = torch.cat([i_idx, j_idx])
 
     def apply_h(x):
@@ -139,8 +142,10 @@ def _pcg_solve(diag_chol, hij, hij_t, i_idx, j_idx, diag, b, cg_iterations,
             torch.einsum("eab,eb->ea", hij, x[j_idx]),     # into row i
             torch.einsum("eab,eb->ea", hij_t, x[i_idx]),   # into row j
         ])
-        return torch.einsum("nab,nb->na", diag, x).index_add(0, rows,
-                                                              contrib)
+        hx = torch.einsum("nab,nb->na", diag, x)
+        if reduce is None:
+            return hx.index_add(0, rows, contrib)
+        return hx + reduce(torch.zeros_like(x).index_add_(0, rows, contrib))
 
     def apply_minv(r):
         return torch.cholesky_solve(r[..., None], diag_chol)[..., 0]
@@ -165,33 +170,59 @@ def _pcg_solve(diag_chol, hij, hij_t, i_idx, j_idx, diag, b, cg_iterations,
     return x
 
 
-def _gn_step_cg(rotations, translations, edges, rel_rotations,
-                rel_translations, weights, damping, anchor_weight,
-                cg_iterations, cg_tol):
-    """One Gauss-Newton step solved with block-sparse PCG — O(E) memory."""
+def _cg_blocks(rotations, translations, edges, rel_rotations,
+               rel_translations, weights):
+    """The edges' share of the CG system: the block diagonal (N, 6, 6)
+    before damping and anchor, b (N, 6), and the weighted off-diagonal
+    blocks ja^T W jb (E, 6, 6) of edges (i, j)."""
     n = rotations.shape[0]
     r, ja, jb = _edge_blocks(rotations, translations, edges, rel_rotations,
                              rel_translations)
     w = weights[:, None, None]
     i_idx, j_idx = edges[:, 0], edges[:, 1]
-
-    # block diagonal: edge contributions + damping + gauge anchor
-    eye6 = torch.eye(6, dtype=translations.dtype, device=translations.device)
     diag = rotations.new_zeros((n, 6, 6))
     diag.index_add_(0, i_idx, w * torch.einsum("eab,eac->ebc", ja, ja))
     diag.index_add_(0, j_idx, w * torch.einsum("eab,eac->ebc", jb, jb))
-    diag = diag + damping * eye6[None]
-    diag[0] += anchor_weight * eye6
-
     hij = w * torch.einsum("eab,eac->ebc", ja, jb)        # (E, 6, 6)
     b = rotations.new_zeros((n, 6))
     wj = weights[:, None]
     b.index_add_(0, i_idx, wj * torch.einsum("eab,ea->eb", ja, r))
     b.index_add_(0, j_idx, wj * torch.einsum("eab,ea->eb", jb, r))
+    return diag, b, hij
 
-    diag_chol = torch.linalg.cholesky_ex(diag).L          # block-Jacobi M
-    return _pcg_solve(diag_chol, hij, hij.mT, i_idx, j_idx, diag, -b,
-                      cg_iterations, cg_tol)
+
+def _damped(diag, damping, anchor_weight):
+    """The block diagonal with damping and the gauge anchor on pose 0, and
+    its Cholesky factors (the block-Jacobi preconditioner)."""
+    eye6 = torch.eye(6, dtype=diag.dtype, device=diag.device)
+    diag = diag + damping * eye6[None]
+    diag[0] += anchor_weight * eye6
+    return diag, torch.linalg.cholesky_ex(diag).L
+
+
+def _gn_step_cg(rotations, translations, edges, rel_rotations,
+                rel_translations, weights, damping, anchor_weight,
+                cg_iterations, cg_tol):
+    """One Gauss-Newton step solved with block-sparse PCG — O(E) memory."""
+    diag, b, hij = _cg_blocks(rotations, translations, edges, rel_rotations,
+                              rel_translations, weights)
+    diag, diag_chol = _damped(diag, damping, anchor_weight)
+    return _pcg_solve(diag_chol, hij, hij.mT, edges[:, 0], edges[:, 1], diag,
+                      -b, cg_iterations, cg_tol)
+
+
+def _dense_step(h, b, damping, anchor_weight):
+    """The (N, 6) update of the dense system ``(h, b)``: a strong prior on
+    pose 0 staying put (the gauge), damping, Cholesky."""
+    n6 = h.shape[0]
+    anchor = torch.zeros(n6, dtype=h.dtype, device=h.device)
+    anchor[:6] = anchor_weight
+    h = h + torch.diag(anchor) + damping * torch.eye(n6, dtype=h.dtype,
+                                                     device=h.device)
+    chol = torch.linalg.cholesky_ex(h).L
+    y = torch.linalg.solve_triangular(chol, -b[:, None], upper=False)
+    return torch.linalg.solve_triangular(chol.mT, y,
+                                         upper=True).reshape(n6 // 6, 6)
 
 
 def _apply_update(rotations, translations, xi):
@@ -215,7 +246,6 @@ def optimize_pose_graph(graph: PoseGraph, iterations: int = 10,
     Returns (optimised graph, per-iteration total squared residual)."""
     if solver not in ("dense", "cg"):
         raise ValueError(f"unknown solver {solver!r}")
-    n = graph.num_poses
     dtype, dev = graph.translations.dtype, graph.translations.device
     weights = (graph.weights if graph.weights is not None
                else torch.ones(graph.num_edges, dtype=dtype, device=dev))
@@ -226,15 +256,7 @@ def optimize_pose_graph(graph: PoseGraph, iterations: int = 10,
             h, b = build_normal_equations(
                 rotations, translations, graph.edges, graph.rel_rotations,
                 graph.rel_translations, weights)
-            # gauge fix: a strong prior on pose 0 staying put
-            anchor = torch.zeros(6 * n, dtype=dtype, device=dev)
-            anchor[:6] = anchor_weight
-            h = h + torch.diag(anchor) + damping * torch.eye(
-                6 * n, dtype=dtype, device=dev)
-            chol = torch.linalg.cholesky_ex(h).L
-            y = torch.linalg.solve_triangular(chol, -b[:, None], upper=False)
-            xi = torch.linalg.solve_triangular(chol.mT, y,
-                                               upper=True).reshape(n, 6)
+            xi = _dense_step(h, b, damping, anchor_weight)
         else:
             xi = _gn_step_cg(rotations, translations, graph.edges,
                              graph.rel_rotations, graph.rel_translations,

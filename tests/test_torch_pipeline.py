@@ -2,6 +2,7 @@
 rehearsal of the normals and registration paths of ``chip_smoke.py``."""
 
 import functools
+import types
 
 import jax
 import numpy as np
@@ -68,8 +69,18 @@ def test_pipeline_matches_jax(rng, jitted_reference):
 
 
 def test_pipeline_mesh_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="parallel"):
-        RegistrationPipeline(mesh=object(), device="cpu")
+    """The name dates from when the mesh mode raised; the mode is ported
+    now (``tests/test_torch_distributed.py`` drives it over four ranks),
+    and the test keeps its name.  Here: the pipeline takes the mesh's device
+    and the reference's defaults, refuses a ``device=`` other than the
+    mesh's, and a graph needs an edge."""
+    mesh = types.SimpleNamespace(device=torch.device("cpu"))
+    pipe = RegistrationPipeline(mesh=mesh)
+    assert pipe.device == mesh.device and pipe.mesh is mesh
+    assert (pipe.distributed_halo, pipe.distributed_capacity_factor) == \
+        (512, 4.0)
+    with pytest.raises(ValueError, match="mesh"):
+        RegistrationPipeline(mesh=mesh, device="meta")
     with pytest.raises(ValueError, match="two keyframes"):
         RegistrationPipeline(device="cpu").graph()
 
