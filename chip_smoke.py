@@ -131,7 +131,14 @@ the CUDA toolkit.  It
    same ranks' partition on the CPU bit for bit; then seconds per step,
    collective and staged bytes, K3–K6 launches a step and rank 0's device
    busy.  K4, K3'q, K5 and K6 are held against their plain versions on the
-   inputs world (a) gave them and timed as rows.
+   inputs world (a) gave them and timed as rows.  World (b) then lays its
+   four ranks out as a ``("hosts", "points")`` mesh of shape (2, 2) and runs
+   the main path's steps over ``"points"`` (shard, bounds, the quantized
+   and the merged voxelize, partition and halo, normals, partitioned
+   point-to-plane ICP, CG pose graph), gated by ``gate_mesh2d``: the two
+   ``hosts`` rows bit-equal (the pose graph, whose sums are float atomics on
+   the card, within 1e-9 m), each step against the single-device path; K3'q
+   and K5 are held against their plain versions on rank 0's inputs there.
 
 The ``kernels`` phase also holds K6 against its plain version at the
 normals path's shape and at the point-to-plane ICP's.  ``--profile`` adds
@@ -148,10 +155,12 @@ never carries on on the CPU.  The last line is
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import importlib
 import importlib.util
 import io
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -3012,14 +3021,7 @@ def compaction_row(rows: list, cols: list, keep: torch.Tensor, name: str,
     and added as the row ``name`` of ``path``'s run; the library call is
     boolean-mask indexing of each column."""
     m = keep.shape[0]
-    got, gcount = ck.blockwise_compact(cols, keep)
-    want, wcount = ck.blockwise_compact_plain(cols, keep)
-    torch.cuda.synchronize()
-    kept = int(gcount.item())
-    if kept != int(wcount.item()) or not all(
-            torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"blockwise_compact on {path}'s inputs "
-                             f"differs from its plain version")
+    kept = hold_compaction(cols, keep, f"{path}'s inputs")
     row_bytes = sum(c.numel() // m * c.element_size() for c in cols)
     add_row(rows, name, _CSRC + "compact.cu",
             _TPU + "compact_kernel.py:135", 0.0,
@@ -3033,6 +3035,20 @@ def compaction_row(rows: list, cols: list, keep: torch.Tensor, name: str,
             library_ms=gpu_ms(lambda: [c[keep] for c in cols], flush,
                               reps=5),
             path=path, counter="blockwise_compact")
+
+
+def hold_compaction(cols: list, keep: torch.Tensor, what: str) -> int:
+    """K5 against its plain version on ``cols`` / ``keep``; raises unless
+    they agree.  Returns the kept count."""
+    got, gcount = ck.blockwise_compact(cols, keep)
+    want, wcount = ck.blockwise_compact_plain(cols, keep)
+    torch.cuda.synchronize()
+    kept = int(gcount.item())
+    if kept != int(wcount.item()) or not all(
+            torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"blockwise_compact on {what} differs from "
+                             f"its plain version")
+    return kept
 
 
 def timed_folds(path, device, points: int, reps: int = 2) -> dict:
@@ -3792,6 +3808,8 @@ DIST_PIPE_SCANS = 3           # cut from 4 for the run's time: PERF.md
 DIST_DIR = "_distributed"     # under the checkout; removed after the phase
 DIST_AGREE_M = 1e-4           # world (b) against (a): replicated ICP, poses
 DIST_HALO_AGREE_M = 2e-2      # partitioned ICP and pipeline (dryrun's bound)
+MESH2D_AXES = ("hosts", "points")   # world (b)'s four ranks as a 2-D mesh
+MESH2D_TWIN_M = 1e-9          # the pose graph's hosts twins (float atomics)
 #: the kernel counters a step's launches are read from
 DIST_COUNTERS = ("tile_sort", "fused_sorted_voxel_reduce_quantized",
                  "blockwise_compact", "window_fit_moments")
@@ -3810,7 +3828,8 @@ def dist_config(**overrides) -> dict:
            "icp_iters": 20, "halo": 512, "capacity": 4.0,
            "pose": {"dense": 1024, "cg": 1024, "cg_large": 20000},
            "pose_iters": POSE_ITERS, "read_n": 1 << 20, "read_files": 4,
-           "cross_n": 1 << 16, "device": None, "backend": None}
+           "cross_n": 1 << 16, "mesh2d": (2, 2), "device": None,
+           "backend": None}
     cfg.update(overrides)
     return cfg
 
@@ -3998,7 +4017,7 @@ def distributed_world(rank: int, size: int, work: str, cfg: dict,
     tiles = cfg["ztiles"] * cfg["xtiles"]
     halo = cfg["halo"]
 
-    def step(name, fn, again: bool = False):
+    def step(name, fn, again: bool = False, rec: dict = out):
         parallel.reset_collective_counts()
         before = kernels.launch_counts()
         t0 = time.perf_counter()
@@ -4006,15 +4025,15 @@ def distributed_world(rank: int, size: int, work: str, cfg: dict,
         _sync(dev)
         sec = time.perf_counter() - t0
         after = kernels.launch_counts()
-        out["launches"][name] = {c: after[c] - before[c]
+        rec["launches"][name] = {c: after[c] - before[c]
                                  for c in DIST_COUNTERS}
-        out["collectives"][name] = parallel.collective_counts()
+        rec["collectives"][name] = parallel.collective_counts()
         if again:
             t0 = time.perf_counter()
             fn()
             _sync(dev)
             sec = time.perf_counter() - t0
-        out["seconds"][name] = sec
+        rec["seconds"][name] = sec
         return res
 
     shard = parallel.shard_batch(wb, mesh)
@@ -4162,19 +4181,193 @@ def distributed_world(rank: int, size: int, work: str, cfg: dict,
             ((on[0][0].data[POS], on[1][0].data[POS]),
              (on[0][1], on[1][1]), (on[0][2], on[1][2])))}
     if dev.type == "cuda":
-        # device busy over one more pass of the cheap steps, traced on
-        # rank 0 (every rank runs the pass: its collectives need them all)
+        # device busy over one more pass of the cheap steps
         def one_pass(i=0):
             for fn in cheap.values():
                 fn()
-        if rank == 0:
-            prof = gpu_profile(one_pass, steps=1, warm=False)
-            out["busy"] = {"traced_ms": prof["traced_wall_ms_per_step"],
-                           "busy_ms": prof["device_busy_ms_per_step"],
-                           "launches": prof["device_launches_per_step"]}
-        else:
-            one_pass()
+        out["busy"] = busy_pass(rank, one_pass)
+    if size > 1 and size == math.prod(cfg["mesh2d"]):
+        out["mesh2d"] = distributed_mesh2d(rank, work, cfg, dev, wb, surface,
+                                           step)
     return out
+
+
+def busy_pass(rank: int, one_pass):
+    """Rank 0's device busy over one more pass (``torch.profiler``); every
+    rank runs the pass, as its collectives need them all."""
+    if rank != 0:
+        one_pass()
+        return None
+    prof = gpu_profile(one_pass, steps=1, warm=False)
+    return {"traced_ms": prof["traced_wall_ms_per_step"],
+            "busy_ms": prof["device_busy_ms_per_step"],
+            "launches": prof["device_launches_per_step"]}
+
+
+def _digest(tree) -> str:
+    """A hash of the bytes of every array of ``tree`` (dicts in key order),
+    to hold two ranks' results equal without shipping them."""
+    h = hashlib.sha256()
+
+    def feed(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                h.update(str(k).encode())
+                feed(x[k])
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                feed(v)
+        else:
+            a = np.ascontiguousarray(x)
+            h.update(str((a.dtype, a.shape)).encode())
+            h.update(a.tobytes())
+    feed(tree)
+    return h.hexdigest()
+
+
+def distributed_mesh2d(rank: int, work: Path, cfg: dict, dev, wb: PointBatch,
+                       surface: np.ndarray, step) -> dict:
+    """World (b)'s ranks as a ``MESH2D_AXES`` mesh of ``cfg["mesh2d"]``:
+    the main path's steps over ``"points"`` at its sizes (each ``points``
+    line holds the whole batch, half a rank), recorded by ``step`` as the
+    1-D steps are.  Every rank returns a digest of each step's results
+    (the ``hosts`` rows must agree bit for bit) and the ranks of the first
+    ``hosts`` row their shards for :func:`gate_mesh2d`; on the card rank 0
+    holds K3'q and K5 against their plain versions on the inputs the steps
+    gave them, then reads its device busy over one pass of the millisecond
+    steps.  The pose graph's translations come back from every rank: its
+    sums are float atomics on the card, so its ``hosts`` twins agree to a
+    bound, not bit for bit."""
+    ax = "points"
+    t0 = time.perf_counter()
+    mesh = parallel.make_mesh(math.prod(cfg["mesh2d"]), MESH2D_AXES,
+                              cfg["mesh2d"], device=dev,
+                              backend=cfg["backend"])
+    line = mesh.along(ax)
+    rec = {"coords": mesh.coords, "mesh_s": time.perf_counter() - t0,
+           "seconds": {}, "launches": {}, "collectives": {}}
+    tiles = cfg["ztiles"] * cfg["xtiles"]
+    halo = cfg["halo"]
+    shard = parallel.shard_batch(wb, mesh, ax)
+    pos_only = parallel.shard_batch(PointBatch(
+        {POS: wb.data[POS]}, wb.count, wb.schema, {}), mesh, ax)
+    nshard = parallel.shard_batch(positions_batch(surface), mesh, ax)
+    qkw = dict(grid_bits=10, position_quantization_bits=QBITS,
+               sort_tiles=tiles // line.size)
+
+    def partition():
+        p = parallel.morton_partition(pos_only, mesh, ax,
+                                      capacity_factor=line.size,
+                                      sort_local=True)
+        return p, parallel.halo_exchange(p[0], p[1], mesh, halo, ax)
+    cheap = {
+        "sharded_bounds": lambda: parallel.sharded_bounds(shard, mesh, ax),
+        "sharded_voxel_downsample": lambda: parallel.sharded_voxel_downsample(
+            shard, mesh, LEAF, ax, **qkw),
+        "sharded_voxel_downsample_merged":
+            lambda: parallel.sharded_voxel_downsample_merged(
+                shard, mesh, LEAF, ax, mode_runs=True),
+        "morton_partition_halo": partition,
+        "distributed_normals": lambda: parallel.distributed_normals(
+            nshard, mesh, NORMALS_K, window=NORMALS_WINDOW, axis=ax)}
+    captured = {}
+    hold = rank == 0 and dev.type == "cuda"
+    with (capturing(captured) if hold else contextlib.nullcontext()):
+        got = {name: step(name, fn, again=True, rec=rec)
+               for name, fn in cheap.items()}
+    (mn, mx), (vox, vcounts), (merged, maux), \
+        ((part, pcounts, pdropped), (hcols, hcounts)), \
+        (npart, nrm, _, ncounts, ndropped) = got.values()
+    del got
+    r = line.rank
+    res = {"bounds": (_np_of(mn), _np_of(mx))}
+    nq = int(vcounts[r])
+    res["quantized"] = {"counts": _np_of(vcounts),
+                        **{k: _np_of(vox.data[k][:nq])
+                           for k in (POS, INT, CLS)}}
+    nm = int(merged.count.item())
+    res["merged"] = {"points": int(maux["counts"].sum()),
+                     **{k: _np_of(merged.data[k][:nm])
+                        for k in (POS, INT, CLS)}}
+    del merged, maux, vox
+    c = int(pcounts[r])
+    res["partition"] = {"counts": _np_of(pcounts),
+                        "dropped": _np_of(pdropped),
+                        "pos": _np_of(part.data[POS][:c]),
+                        "halo_counts": _np_of(hcounts),
+                        "halo_pos": _np_of(hcols[POS])}
+    cn = int(ncounts[r])
+    npos = _np_of(npart.data[POS][:cn])
+    nn = _np_of(nrm[:cn])
+    res["normals"] = {"n": cn, "dropped": _np_of(ndropped),
+                      "within_6deg": within_degrees(nn, npos) * cn}
+    rec["digest"] = {"normals": _digest((npos, nn))}
+    del part, hcols, npart, nrm
+
+    src, tgt = (np.load(work / f"icp_{k}.npy") for k in ("source", "target"))
+    clouds = [parallel.shard_batch(positions_batch(p), mesh, ax)
+              for p in (src, tgt)]
+    icp_res, dropped = step(
+        "distributed_icp_partitioned",
+        lambda: parallel.distributed_icp_partitioned(
+            *clouds, mesh, ax, halo=halo, capacity_factor=cfg["capacity"],
+            iterations=cfg["icp_iters"], point_to_plane=True), rec=rec)
+    res["icp_partitioned"] = {"rotation": _np_of(icp_res.rotation),
+                              "translation": _np_of(icp_res.translation),
+                              "inliers": int(icp_res.num_inliers),
+                              "dropped": int(dropped)}
+    graph, _ = circle_graph(cfg["pose"]["cg"], device=dev)
+    opt, costs = step("pose_graph_cg", lambda: parallel.distributed_pose_graph(
+        graph, mesh, ax, iterations=cfg["pose_iters"], solver="cg",
+        **POSE_CG_KW), rec=rec)
+    res["pose_graph_cg"] = {"poses": cfg["pose"]["cg"],
+                            "costs": _np_of(costs),
+                            "translations": _np_of(opt.translations)}
+    # the pose graph's block sums are index_add_ on the card (float
+    # atomics, in no fixed order): its twins are held within a bound
+    rec["digest"].update({k: _digest(v) for k, v in res.items()
+                          if k not in ("normals", "pose_graph_cg")})
+    rec["pose_graph_cg"] = res["pose_graph_cg"]["translations"]
+    if mesh.coords[0] == 0:
+        rec["results"] = res
+    if hold:
+        rec["held"] = hold_captured(captured)
+    if dev.type == "cuda":
+        def one_pass(i=0):
+            for fn in cheap.values():
+                fn()
+        rec["busy"] = busy_pass(rank, one_pass)
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def hold_reduce_quantized(args: tuple, kw: dict, what: str):
+    """K3'q against its plain version on the arguments a step gave it;
+    raises unless they agree.  Returns ``(max_abs_err, voxels)``."""
+    kpos, kword, kcount = vr.fused_sorted_voxel_reduce_rows(*args, **kw)
+    ppos, pword, pcount = vr.fused_sorted_voxel_reduce_plain(*args, **kw)
+    torch.cuda.synchronize()
+    nv = int(kcount.item())
+    err = (kpos - ppos).abs().max().item()
+    if nv != int(pcount.item()) or not torch.equal(u32_carrier(kword),
+                                                   pword) or err != 0.0:
+        raise AssertionError(f"fused_sorted_voxel_reduce (quantized) on "
+                             f"{what} differs from its plain version")
+    return err, nv
+
+
+def hold_captured(captured: dict) -> dict:
+    """K3'q and the merge's K5 against their plain versions on the inputs
+    a step gave them (the 2-D mesh's shard, on rank 0): their shapes and
+    the largest difference, which must be 0."""
+    args, kw = captured["reduce"]
+    err, _ = hold_reduce_quantized(args, kw, "the 2-D mesh's shard")
+    (cols, keep), _ = captured["compact"]
+    kept = hold_compaction(list(cols), keep, "the 2-D mesh's merge")
+    return {"fused_sorted_voxel_reduce_quantized": {
+                "rows": int(args[0].shape[0]), "max_abs_err": err},
+            "blockwise_compact": {"rows": int(keep.shape[0]),
+                                  "kept": kept, "max_abs_err": 0.0}}
 
 
 def _max_diff(a, b) -> float:
@@ -4199,6 +4392,92 @@ def gate_distributed(world: list, refs: dict, cfg: dict) -> dict:
         raise AssertionError(f"path_distributed ({size} ranks): {what}: "
                              f"{detail}")
 
+    g.update(gate_shards(world, refs, cfg, fail))
+    # registration: truth, the single device, replicated on every rank
+    # ICP: point-to-point on the scan pair = the single device (the truth
+    # reported: fresh draws bias point-to-point), on the moved keyframe =
+    # the truth; partitioned point-to-plane = the truth and the single
+    # device's point-to-plane
+    for name, single, bound, truth in (
+            ("icp", "icp", 5e-3, False), ("icp_moved", None, None, True),
+            ("icp_partitioned", "icp_plane", DIST_HALO_AGREE_M, True)):
+        g[name] = gate_pose(world, name, refs, single, bound, truth, fail)
+    pg = world[0]["pose_graph"]
+    for name, p in pg.items():
+        if not p["costs"][-1] < p["costs"][0]:
+            fail(f"pose_graph {name}", f"costs {p['costs']}")
+    g["pose_dense_vs_single"] = _max_diff(pg["dense"]["translations"],
+                                          refs["pose_dense"])
+    g["pose_cg_vs_dense"] = _max_diff(pg["cg"]["translations"],
+                                      pg["dense"]["translations"])
+    g["pose_ate_m"] = {k: p["ate_m"] for k, p in pg.items()}
+    if not (g["pose_dense_vs_single"] <= 1e-6
+            and g["pose_cg_vs_dense"] <= 1e-6):
+        fail("distributed_pose_graph", g)
+    if not all(r["read"]["equal"] and r["read"]["device"] ==
+               str(resolve_device(cfg["device"])) for r in world):
+        fail("sharded_read_all", [r["read"] for r in world])
+    rots, trans = world[0]["pipeline"]
+    g["pipeline"] = pose_errors(rots, trans, refs["poses"])
+    g["pipeline_vs_single_m"] = _max_diff(trans, refs["pipeline"][1])
+    if not (g["pipeline"]["mean_m"] <= TRAJ_MEAN_M
+            and g["pipeline"]["worst_m"] <= TRAJ_WORST_M
+            and g["pipeline"]["rotation_deg"] <= TRAJ_ROT_DEG
+            and g["pipeline_vs_single_m"] <= DIST_HALO_AGREE_M):
+        fail("RegistrationPipeline(mesh=)", g)
+    if cuda:
+        for r in world:
+            gate_launches(r["launches"], fail)
+        if size > 1 and not all(r["cross_cpu"]["equal"] for r in world):
+            fail("morton_partition", "the card's partition differs from "
+                 "the CPU's")
+    return g
+
+
+def gate_launches(la: dict, fail) -> None:
+    """A rank's kernel launches in the steps of the card's path: K4 and
+    K3'q once in a shard's voxelize, K5 in the merge, K6 once in the
+    normals."""
+    q_l = la["sharded_voxel_downsample"]
+    if q_l["tile_sort"] != 1 \
+            or q_l["fused_sorted_voxel_reduce_quantized"] != 1:
+        fail("sharded_voxel_downsample", f"launches {q_l}")
+    if la["sharded_voxel_downsample_merged"]["blockwise_compact"] < 1:
+        fail("sharded_voxel_downsample_merged", "K5 not launched")
+    if la["distributed_normals"]["window_fit_moments"] != 1:
+        fail("distributed_normals", f"launches {la['distributed_normals']}")
+
+
+def gate_pose(world: list, name: str, refs: dict, single, bound, truth: bool,
+              fail) -> dict:
+    """An ICP step's pose on rank 0 against the truth and the single
+    device's, and the same on every rank; nothing dropped."""
+    rot_t, t_t = refs["icp_truth"]
+    p = world[0][name]
+    e_t = float(np.linalg.norm(p["translation"] - t_t))
+    e_r = _rotation_deg(p["rotation"], rot_t)
+    g = {"error_m": e_t, "error_deg": e_r, "inliers": p["inliers"]}
+    if single is not None:
+        g["vs_single"] = max(_max_diff(p["translation"], refs[single][1]),
+                             _max_diff(p["rotation"], refs[single][0]))
+        if not g["vs_single"] <= bound:
+            fail(name, g)
+    if truth and not (e_t <= 0.02 and e_r <= 0.2):
+        fail(name, g)
+    if p.get("dropped", 0):
+        fail(name, f"dropped {p['dropped']}")
+    for r in world[1:]:
+        if _max_diff(r[name]["translation"], p["translation"]):
+            fail(name, "not replicated")
+    return g
+
+
+def gate_shards(world: list, refs: dict, cfg: dict, fail) -> dict:
+    """The gates of the millisecond steps on one line of ranks (shards in
+    order): bounds, the shards' voxels, the merged voxels, the partition
+    and halo, the normals."""
+    size = len(world)
+    g = {}
     for r in world:
         if not all(np.array_equal(np.asarray(x, np.float64), y)
                    for x, y in zip(r["bounds"], refs["bounds"])):
@@ -4277,72 +4556,63 @@ def gate_distributed(world: list, refs: dict, cfg: dict) -> dict:
             or any(r["normals"]["dropped"].any()
                                    for r in world) or not share >= 0.99:
         fail("distributed_normals", f"{share} within 6°")
+    return g
 
-    # registration: truth, the single device, replicated on every rank
-    # ICP: point-to-point on the scan pair = the single device (the truth
-    # reported: fresh draws bias point-to-point), on the moved keyframe =
-    # the truth; partitioned point-to-plane = the truth and the single
-    # device's point-to-plane
-    rot_t, t_t = refs["icp_truth"]
-    for name, single, bound, truth in (
-            ("icp", "icp", 5e-3, False), ("icp_moved", None, None, True),
-            ("icp_partitioned", "icp_plane", DIST_HALO_AGREE_M, True)):
-        p = world[0][name]
-        e_t = float(np.linalg.norm(p["translation"] - t_t))
-        e_r = _rotation_deg(p["rotation"], rot_t)
-        g[name] = {"error_m": e_t, "error_deg": e_r, "inliers": p["inliers"]}
-        if single is not None:
-            g[name]["vs_single"] = max(
-                _max_diff(p["translation"], refs[single][1]),
-                _max_diff(p["rotation"], refs[single][0]))
-            if not g[name]["vs_single"] <= bound:
-                fail(name, g[name])
-        if truth and not (e_t <= 0.02 and e_r <= 0.2):
-            fail(name, g[name])
-        if p.get("dropped", 0):
-            fail(name, f"dropped {p['dropped']}")
-        for r in world[1:]:
-            if _max_diff(r[name]["translation"], p["translation"]):
-                fail(name, "not replicated")
-    pg = world[0]["pose_graph"]
-    for name, p in pg.items():
-        if not p["costs"][-1] < p["costs"][0]:
-            fail(f"pose_graph {name}", f"costs {p['costs']}")
-    g["pose_dense_vs_single"] = _max_diff(pg["dense"]["translations"],
-                                          refs["pose_dense"])
-    g["pose_cg_vs_dense"] = _max_diff(pg["cg"]["translations"],
-                                      pg["dense"]["translations"])
-    g["pose_ate_m"] = {k: p["ate_m"] for k, p in pg.items()}
-    if not (g["pose_dense_vs_single"] <= 1e-6
-            and g["pose_cg_vs_dense"] <= 1e-6):
+
+def gate_mesh2d(world: list, refs: dict, cfg: dict) -> dict:
+    """The 2-D mesh's gates on world (b)'s ranks (see
+    :func:`distributed_mesh2d`): every step's results bit-equal on the two
+    ``hosts`` rows, but the pose graph's within ``MESH2D_TWIN_M`` (its
+    block sums are float atomics on the card); on the first row's ranks,
+    the shards' gates (:func:`gate_shards`), partitioned point-to-plane ICP on the truth and
+    within ``DIST_HALO_AGREE_M`` of the single device's, the CG pose graph
+    within 1e-6 m of the single device's dense solve; on the card, the
+    kernels' launches and rank 0's holds of K3'q and K5.  Raises on the
+    first that fails; returns what it measured."""
+    shape = tuple(cfg["mesh2d"])
+    recs = [r["mesh2d"] for r in world]
+    points = shape[MESH2D_AXES.index("points")]
+
+    def fail(what, detail):
+        raise AssertionError(f"path_distributed (mesh {shape} over "
+                             f"{MESH2D_AXES}): {what}: {detail}")
+
+    g = {"hosts_rows_equal": sorted(recs[0]["digest"]),
+         "pose_cg_hosts_max_diff_m": 0.0}
+    for r, rec in enumerate(recs):
+        if rec["coords"] != tuple(int(c) for c in np.unravel_index(r, shape)):
+            fail("make_mesh", f"rank {r} at {rec['coords']}")
+        twin = recs[r % points]
+        for k, d in rec["digest"].items():
+            if d != twin["digest"][k]:
+                fail(k, f"rank {r} differs from rank {r % points}, its "
+                     f"hosts twin")
+        diff = _max_diff(rec["pose_graph_cg"], twin["pose_graph_cg"])
+        g["pose_cg_hosts_max_diff_m"] = max(g["pose_cg_hosts_max_diff_m"],
+                                            diff)
+        if not diff <= MESH2D_TWIN_M:
+            fail("pose_graph_cg", f"rank {r} differs from its hosts twin by "
+                 f"{diff} m")
+    line = [rec["results"] for rec in recs[:points]]
+    g.update(gate_shards(line, refs, cfg, fail))
+    g["icp_partitioned"] = gate_pose(line, "icp_partitioned", refs,
+                                     "icp_plane", DIST_HALO_AGREE_M, True,
+                                     fail)
+    pg = line[0]["pose_graph_cg"]
+    if pg["poses"] != cfg["pose"]["dense"]:
+        fail("distributed_pose_graph", "CG and the dense reference differ "
+             "in size")
+    g["pose_cg_vs_single_dense"] = _max_diff(pg["translations"],
+                                             refs["pose_dense"])
+    if not (pg["costs"][-1] < pg["costs"][0]
+            and g["pose_cg_vs_single_dense"] <= 1e-6):
         fail("distributed_pose_graph", g)
-    if not all(r["read"]["equal"] and r["read"]["device"] ==
-               str(resolve_device(cfg["device"])) for r in world):
-        fail("sharded_read_all", [r["read"] for r in world])
-    rots, trans = world[0]["pipeline"]
-    g["pipeline"] = pose_errors(rots, trans, refs["poses"])
-    g["pipeline_vs_single_m"] = _max_diff(trans, refs["pipeline"][1])
-    if not (g["pipeline"]["mean_m"] <= TRAJ_MEAN_M
-            and g["pipeline"]["worst_m"] <= TRAJ_WORST_M
-            and g["pipeline"]["rotation_deg"] <= TRAJ_ROT_DEG
-            and g["pipeline_vs_single_m"] <= DIST_HALO_AGREE_M):
-        fail("RegistrationPipeline(mesh=)", g)
-    if cuda:
-        for r in world:
-            la = r["launches"]
-            q_l = la["sharded_voxel_downsample"]
-            if q_l["tile_sort"] != 1 \
-                    or q_l["fused_sorted_voxel_reduce_quantized"] != 1:
-                fail("sharded_voxel_downsample", f"launches {q_l}")
-            if la["sharded_voxel_downsample_merged"][
-                    "blockwise_compact"] < 1:
-                fail("sharded_voxel_downsample_merged", "K5 not launched")
-            if la["distributed_normals"]["window_fit_moments"] != 1:
-                fail("distributed_normals", f"launches "
-                     f"{la['distributed_normals']}")
-        if size > 1 and not all(r["cross_cpu"]["equal"] for r in world):
-            fail("morton_partition", "the card's partition differs from "
-                 "the CPU's")
+    if resolve_device(cfg["device"]).type == "cuda":
+        for rec in recs:
+            gate_launches(rec["launches"], fail)
+        g["held"] = recs[0].get("held")
+        if not g["held"]:
+            fail("kernels", "K3'q and K5 not held on rank 0")
     return g
 
 
@@ -4393,17 +4663,7 @@ def distributed_rows(rows: list, captured: dict) -> None:
                   "tile_sort_distributed", path, flush)
 
     args, kw = captured["reduce"]
-    kpos, kword, kcount = vr.fused_sorted_voxel_reduce_rows(*args, **kw)
-    ppos, pword, pcount = vr.fused_sorted_voxel_reduce_plain(*args, **kw)
-    torch.cuda.synchronize()
-    nv = int(kcount.item())
-    err = (kpos - ppos).abs().max().item()
-    if nv != int(pcount.item()) or not torch.equal(u32_carrier(kword),
-                                                   pword) or err != 0.0:
-        raise AssertionError("fused_sorted_voxel_reduce (quantized) on the "
-                             "distributed path's inputs differs from its "
-                             "plain version")
-    del ppos, pword
+    err, nv = hold_reduce_quantized(args, kw, "the distributed path's inputs")
     n = args[0].shape[0]
     tl = args[9]
     add_row(rows, "fused_sorted_voxel_reduce_quantized_distributed",
@@ -4467,6 +4727,36 @@ def world_line(world: list, name: str, gates: dict, smi: str) -> dict:
         "gates": gates, "card": smi}
 
 
+def mesh2d_line(world: list, cfg: dict, gates: dict, smi: str) -> dict:
+    """The phase's line for world (b)'s 2-D mesh: rank 0's seconds a step
+    and the slowest rank's, the seconds of all its steps, collective and
+    staged bytes a step on rank 0, rank 0's device busy over the
+    millisecond steps, the gates' readings (the kernel holds among
+    them)."""
+    recs = [r["mesh2d"] for r in world]
+    r0 = recs[0]
+    steps = list(r0["seconds"])
+    busy = r0.get("busy")
+    return {
+        "phase": "path_distributed", "world": f"b: {len(world)} ranks as a "
+        f"{tuple(cfg['mesh2d'])} {MESH2D_AXES} mesh, steps over points",
+        "mesh_seconds": [rec["mesh_s"] for rec in recs],
+        "wall_seconds_slowest_rank": max(rec["wall_s"] for rec in recs),
+        "seconds": r0["seconds"],
+        "seconds_slowest_rank": {s: max(rec["seconds"][s] for rec in recs)
+                                 for s in steps},
+        "step_seconds_total": sum(r0["seconds"].values()),
+        "launches_rank0": r0["launches"],
+        "collective_bytes": {s: sum(v["bytes"] for c, v in
+                                    r0["collectives"][s].items()
+                                    if c != "staged") for s in steps},
+        "staged_bytes": {s: sum(r0["collectives"][s]["staged"].values())
+                         for s in steps},
+        "device_busy_rank0": busy, "device_busy_share_rank0": (
+            busy["busy_ms"] / busy["traced_ms"] if busy else None),
+        "gates": gates, "card": smi}
+
+
 def phase_path_distributed(rows: list, smi: str, wbatch: PointBatch,
                            surface: np.ndarray) -> None:
     """The distributed layer on the card, twice: (a) a one-rank NCCL world
@@ -4512,6 +4802,8 @@ def phase_path_distributed(rows: list, smi: str, wbatch: PointBatch,
         print(json.dumps(world_line(b, f"b: {DIST_SIZE} ranks sharing the "
                                        f"card, gloo", gates_b, smi)),
               flush=True)
+        gates_2d = gate_mesh2d(b, refs, cfg)
+        print(json.dumps(mesh2d_line(b, cfg, gates_2d, smi)), flush=True)
         agree = compare_worlds(a, b)
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -21,3 +21,4 @@ __version__ = "0.1.0"
 from . import algorithms, layout  # noqa: F401
 from .buffers import HostPointBuffer, PointBatch  # noqa: F401
 from .layout import PointAttribute, PointSchema  # noqa: F401
+from .math import AABB  # noqa: F401

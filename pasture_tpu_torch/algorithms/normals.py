@@ -507,7 +507,28 @@ def compute_normals(buffer: Union[HostPointBuffer, PointBatch], k_nn: int,
     A host buffer goes to ``device`` (``None``: the GPU, raising without
     one) as float32; a :class:`PointBatch` is computed where it lives, in
     its position column's dtype.  Raises like the reference for clouds of
-    fewer than 3 points or ``k_nn < 3`` (normal_estimation.rs:86-92)."""
+    fewer than 3 points or ``k_nn < 3`` (normal_estimation.rs:86-92).
+
+    Example — points on the z=0 plane get (unoriented) +-z normals and
+    zero curvature:
+
+    >>> import numpy as np
+    >>> from pasture_tpu_torch.algorithms import compute_normals
+    >>> from pasture_tpu_torch.buffers.host import HostPointBuffer
+    >>> from pasture_tpu_torch.layout import attributes as att
+    >>> from pasture_tpu_torch.layout.schema import PointSchema
+    >>> rng = np.random.default_rng(0)
+    >>> pos = np.concatenate([rng.uniform(0, 10, (64, 2)),
+    ...                       np.zeros((64, 1))], axis=1)
+    >>> buf = HostPointBuffer.from_columns(
+    ...     PointSchema.from_attributes([att.POSITION_3D]),
+    ...     {att.POSITION_3D.name: pos})
+    >>> normals, curvature = compute_normals(buf, 8, device="cpu")
+    >>> bool(np.allclose(np.abs(normals[:, 2]), 1.0, atol=1e-5))
+    True
+    >>> bool(np.allclose(curvature, 0.0, atol=1e-5))
+    True
+    """
     if isinstance(buffer, PointBatch):
         n = int(buffer.count.item())
         pos = buffer.data[att.POSITION_3D.name]

@@ -10,8 +10,12 @@ as ``(N, 3)`` numpy.
 The distributed layer's state crosses per rank: a JAX array sharded over a
 mesh axis is one global array whose leading axis holds the shards in
 order, and :func:`shards_from_reference` cuts it into the ranks' blocks
-(:func:`shards_to_reference` joins them back); the merge statistics and a
-``MortonPartitionSpec`` have their own pair.
+(:func:`shards_to_reference` joins them back).  On a mesh of several axes
+the array is sharded over one of them and replicated over the others:
+given the mesh's ``shape`` and the ``axis``, the carriers give every rank
+of the mesh (row-major) the block of its coordinate on the axis, and join
+one line's blocks back.  The merge statistics have their own carrier; a
+``MortonPartitionSpec`` is replicated over every axis and crosses whole.
 """
 
 from __future__ import annotations
@@ -189,27 +193,59 @@ def pose_graph_to_reference(graph) -> Tuple[np.ndarray, ...]:
             None if graph.weights is None else f(graph.weights))
 
 
-def shards_from_reference(array, size: int) -> list:
-    """The ``size`` per-rank blocks of a JAX array sharded over its leading
-    axis (global view ``(size·per, ...)``), as numpy."""
+def _line_coords(size, axis: Optional[str]):
+    """``(axis length, per-rank coordinate on the axis)`` of a 1-D size or
+    of a mesh's ``shape`` dict and one of its axes."""
+    if not isinstance(size, Mapping):
+        return int(size), list(range(int(size)))
+    names = list(size)
+    if axis not in names:
+        raise ValueError(f"axis {axis!r} is not one of {names}")
+    dims = tuple(int(size[k]) for k in names)
+    coords = np.unravel_index(np.arange(int(np.prod(dims))), dims)
+    return dims[names.index(axis)], coords[names.index(axis)].tolist()
+
+
+def shards_from_reference(array, size, axis: Optional[str] = None) -> list:
+    """The per-rank blocks of a JAX array sharded over its leading axis
+    (global view ``(n·per, ...)``), as numpy.  ``size`` is the axis's
+    length ``n`` (one block a rank), or a mesh's ``shape`` dict with
+    ``axis`` the sharded axis: then one block for every rank of the mesh
+    in rank order, each the block of its coordinate on ``axis``."""
+    n, coords = _line_coords(size, axis)
     a = np.asarray(array)
-    if a.shape[0] % size:
-        raise ValueError(f"{a.shape[0]} rows do not split into {size}")
-    return list(np.split(a, size))
+    if a.shape[0] % n:
+        raise ValueError(f"{a.shape[0]} rows do not split into {n}")
+    blocks = np.split(a, n)
+    return [blocks[c] for c in coords]
 
 
-def shards_to_reference(blocks: Sequence) -> np.ndarray:
+def shards_to_reference(blocks: Sequence, shape: Optional[Mapping] = None,
+                        axis: Optional[str] = None) -> np.ndarray:
     """The global view of per-rank blocks: their concatenation in rank
-    order, as numpy."""
+    order, as numpy.  With a mesh's ``shape`` and the sharded ``axis``,
+    ``blocks`` holds every rank's block (rank order) and the global view
+    is the line through rank 0 along ``axis`` (the other lines hold the
+    same blocks: the array is replicated over the other axes)."""
+    if shape is not None:
+        names = list(shape)
+        dims = tuple(int(shape[k]) for k in names)
+        coords = np.unravel_index(np.arange(len(blocks)), dims)
+        a = names.index(axis)
+        blocks = [b for r, b in enumerate(blocks)
+                  if all(coords[d][r] == 0 for d in range(len(dims))
+                         if d != a)]
     return np.concatenate([np.asarray(b) for b in blocks])
 
 
-def aux_shards_from_reference(aux: Mapping, size: int) -> list:
+def aux_shards_from_reference(aux: Mapping, size,
+                              axis: Optional[str] = None) -> list:
     """The per-rank merge statistics of a sharded JAX ``aux`` dict
     (``sharded_voxel_downsample(with_aux=True)``'s global view) as numpy
     trees: every leaf cut into its ``size`` blocks, and each run table's
     ``num_runs`` — one entry a shard in the global view — back to the 0-d
-    counter of a single-device ``aux``.  Feed each to
+    counter of a single-device ``aux``.  ``size`` and ``axis`` as in
+    :func:`shards_from_reference`.  Feed each to
     :func:`aux_from_reference`."""
     def cut(x, key=None):
         if isinstance(x, Mapping):
@@ -217,7 +253,7 @@ def aux_shards_from_reference(aux: Mapping, size: int) -> list:
                     zip(*(cut(v, k) for k, v in x.items()))]
         if isinstance(x, (tuple, list)):
             return [tuple(vals) for vals in zip(*(cut(v) for v in x))]
-        blocks = shards_from_reference(x, size)
+        blocks = shards_from_reference(x, size, axis)
         return [b.reshape(()) for b in blocks] if key == "num_runs" \
             else blocks
 

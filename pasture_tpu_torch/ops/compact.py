@@ -27,9 +27,15 @@ from .kernels.compact_kernel import blockwise_compact
 __all__ = ["compact_columns"]
 
 
-def compact_columns(cols: Sequence[torch.Tensor], keep: torch.Tensor
+def compact_columns(cols: Sequence[torch.Tensor], keep: torch.Tensor,
+                    tiles: int = 0
                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Compact ``cols`` (each ``(N,)`` or ``(N, C)``, any dtype) so rows
     with ``keep`` move to the front in order.  Returns (compacted columns,
-    kept count as a 0-d int32 tensor).  Rows past the kept count are zero."""
+    kept count as a 0-d int32 tensor).  Rows past the kept count are zero.
+
+    ``tiles`` is accepted for the reference's callers and ignored: there it
+    picks the TPU's staged-shift schedule, and the port's kernel (K5)
+    compacts globally in one pass whatever it is; results do not
+    change."""
     return blockwise_compact(cols, keep)

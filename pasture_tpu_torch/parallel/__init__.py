@@ -6,8 +6,11 @@ device mesh (``shard_map`` with ``psum`` / ``all_to_all`` / ``ppermute``);
 the port runs one process per device, each holding only its own shard, and
 meets the other ranks in the collectives of :mod:`._comm` (NCCL on the
 card, gloo on the CPU, gloo through host memory for ranks that share one
-card).  Replicated results (bounds, poses, merged voxels) are the same on
-every rank; per-shard counts come back as ``(size,)`` tensors, the same on
+card).  A mesh has any number of axes (``make_mesh(n, axes, shape)``);
+every op shards over its ``axis=`` and meets the other ranks on that
+axis's line through it, replicated over the other axes.  Replicated
+results (bounds, poses, merged voxels) are the same on every rank;
+per-shard counts come back as tensors of the axis's length, the same on
 every rank.  ``parallel.spawn`` starts a world of local processes.
 """
 

@@ -15,6 +15,11 @@ of ``torch.distributed``:
   is the rank itself and the exchange is a local copy, as ``ppermute`` with
   pairs ``[(0, 0)]`` is.
 
+Each collective takes a 1-D mesh — a mesh's line along the op's axis
+(:meth:`~.mesh.Mesh.along`), or a 1-D mesh itself — and runs on its group;
+"rank" below is the index on that line, and a point-to-point peer is named
+by its global rank (``dist.get_global_rank``).
+
 A NCCL mesh takes device tensors directly.  A gloo mesh on the card (the
 four-rank world that shares one card) stages each tensor through host
 memory here and nowhere else: an explicit ``.cpu()`` before the collective

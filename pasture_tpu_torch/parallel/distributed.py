@@ -3,7 +3,9 @@
 Port of pasture_tpu/parallel/distributed.py.  Both follow one recipe:
 every rank builds the partial normal equations of its shard of the data,
 one all-reduce sums the 6x6 (ICP) or (6N)² (pose graph) system over the
-mesh, and the small solve runs replicated on every rank — only curvature
+mesh's line along ``axis`` (:meth:`~.mesh.Mesh.along`; the work is
+sharded over that axis and replicated over the others), and the small
+solve runs replicated on every rank — only curvature
 and gradient statistics cross between ranks, never points (but for the
 partitioned ICP's halo rows).  Every entry point runs inside
 :func:`~pasture_tpu_torch._device.fp32_matmul` (no TF32), the port's
@@ -37,13 +39,13 @@ __all__ = ["distributed_icp", "distributed_icp_partitioned",
 
 
 def _reduced_step(moved, matched, nrm, w, d2, point_to_plane, rot, t,
-                  damping, mesh):
+                  damping, line):
     """This rank's H, b, inlier count and squared error, summed over the
-    mesh in one all-reduce; the replicated solve and pose update."""
+    line in one all-reduce; the replicated solve and pose update."""
     h, b = _normal_equations(moved, matched, nrm, w, point_to_plane)
     sse = torch.sum(torch.where(w > 0, d2, torch.zeros_like(d2)) * w)
     g = _comm.all_reduce(torch.cat([h.reshape(36), b, torch.sum(w)[None],
-                                    sse[None]]), "sum", mesh)
+                                    sse[None]]), "sum", line)
     rot, t = _pose_update(g[:36].reshape(6, 6), g[36:42], rot, t, damping)
     rmse = torch.sqrt(g[43] / torch.clamp_min(g[42], 1.0))
     return rot, t, rmse, g[42]
@@ -57,20 +59,21 @@ def distributed_icp(source: torch.Tensor, target: torch.Tensor, mesh: Mesh,
                     tile: int = 2048) -> IcpResult:
     """Point-to-point ICP with the source sharded over the mesh.
 
-    ``source`` is this rank's ``(per, 3)`` block of the ``(size·per, 3)``
-    source; ``source_count`` the global count of valid source rows (default
-    all), of which this rank holds ``clip(count - rank·per, 0, per)``;
+    ``source`` is this rank's ``(per, 3)`` block of the ``(n·per, 3)``
+    source sharded over ``axis`` (``n`` its size); ``source_count`` the
+    global count of valid source rows (default all), of which the rank at
+    coordinate ``r`` of the axis holds ``clip(count - r·per, 0, per)``;
     ``target`` ``(M, 3)`` is replicated (the map block resident on every
     rank).  Each iteration: this rank's exact nearest neighbours and
     partial H / b, one all-reduce, the replicated 6x6 solve.  Returns the
     replicated :class:`~pasture_tpu_torch.registration.IcpResult`."""
-    n = mesh.shape[axis]
+    line = mesh.along(axis)
     per = source.shape[0]
     dtype, dev = source.dtype, source.device
     if source_count is None:
-        source_count = per * n
+        source_count = per * line.size
     count = torch.as_tensor(source_count, device=dev).to(torch.int64)
-    local = torch.clamp(count - mesh.rank * per, 0, per)
+    local = torch.clamp(count - line.rank * per, 0, per)
     valid = torch.arange(per, device=dev) < local
     target_valid = torch.ones(target.shape[0], dtype=torch.bool, device=dev)
     max_d2 = max_correspondence_distance ** 2
@@ -84,7 +87,7 @@ def distributed_icp(source: torch.Tensor, target: torch.Tensor, mesh: Mesh,
             w = (valid & (d2 < max_d2)).to(dtype)
             rot, t, rmse, nin = _reduced_step(moved, target[idx], None, w,
                                               d2, False, rot, t, damping,
-                                              mesh)
+                                              line)
     return IcpResult(rot, t, rmse, nin.to(torch.int32), iterations)
 
 
@@ -136,27 +139,29 @@ def distributed_icp_partitioned(
         src_p, src_counts, src_drop = morton_partition(
             pos_only(source), mesh, axis, capacity_factor, spec=spec)
         dropped = tgt_drop.sum() + src_drop.sum()
-        n = mesh.shape[axis]
+        line = mesh.along(axis)
+        n = line.size
         src, tgt = src_p.data[pos_name], tgt_p.data[pos_name]
         dtype, dev = src.dtype, src.device
-        t_cnt = tgt_counts.to(dev)[mesh.rank]
+        t_cnt = tgt_counts.to(dev)[line.rank]
 
         if point_to_plane:
             # per-rank target normals: the sorted map block padded with
             # ring-halo rows as the window padding (distributed_normals')
             tgt_normals, _ = halo_window_fit(tgt, t_cnt, n, normals_k,
-                                             normals_window, mesh)
+                                             normals_window, mesh, axis)
             tgt_normals = tgt_normals.to(dtype)
         else:
             tgt_normals = torch.zeros_like(tgt)
 
         hcols, hcounts = halo_exchange_local(
-            {pos_name: tgt, "normal": tgt_normals}, t_cnt, n, halo, mesh)
+            {pos_name: tgt, "normal": tgt_normals}, t_cnt, n, halo, mesh,
+            axis)
         # the valid rows only: the local block, the left halo's, the
         # right halo's (in the reference's row order, so a tie still goes
         # to the first)
         s_n, t_n, l_n, r_n = (int(v) for v in torch.stack([
-            src_counts.to(dev)[mesh.rank], t_cnt, hcounts[0],
+            src_counts.to(dev)[line.rank], t_cnt, hcounts[0],
             hcounts[1]]).tolist())
         src = src[:s_n]
         full_t = torch.cat([tgt[:t_n], hcols[pos_name][:l_n],
@@ -178,7 +183,7 @@ def distributed_icp_partitioned(
             w = (d2 < max_d2).to(dtype)
             rot, t, rmse, nin = _reduced_step(
                 moved, full_t[idx], full_n[idx], w, d2, point_to_plane, rot,
-                t, damping, mesh)
+                t, damping, line)
     return IcpResult(rot, t, rmse, nin.to(torch.int32), iterations), dropped
 
 
@@ -193,9 +198,10 @@ def distributed_pose_graph(graph: PoseGraph, mesh: Mesh,
 
     ``graph`` is replicated (every rank passes the whole graph); the edges
     are padded with zero-weight self-edges ``(0, 0)`` to a multiple of the
-    size and rank ``r`` takes its block.  ``solver="dense"``: each rank's
-    partial (6N)² H and b, one all-reduce, a replicated Cholesky — to ~2k
-    poses.  ``solver="cg"``: block-sparse PCG; the block diagonal and b
+    size of ``axis`` and the ranks at coordinate ``r`` of the axis take
+    block ``r``; the sums run over the axis's line.  ``solver="dense"``:
+    each rank's partial (6N)² H and b, one all-reduce, a replicated
+    Cholesky — to ~2k poses.  ``solver="cg"``: block-sparse PCG; the block diagonal and b
     are all-reduced once a Gauss-Newton step, and each H·x product applies
     this rank's edges and all-reduces one (N, 6) array; the loop keeps the
     reference's relative-residual exit, reading r·z on the host each CG
@@ -206,7 +212,8 @@ def distributed_pose_graph(graph: PoseGraph, mesh: Mesh,
     reference."""
     if solver not in ("dense", "cg"):
         raise ValueError(f"unknown solver {solver!r}")
-    n_size = mesh.shape[axis]
+    line = mesh.along(axis)
+    n_size = line.size
     n, e = graph.num_poses, graph.num_edges
     dtype, dev = graph.translations.dtype, graph.translations.device
     weights = (graph.weights if graph.weights is not None
@@ -221,7 +228,7 @@ def distributed_pose_graph(graph: PoseGraph, mesh: Mesh,
         rel_t = torch.cat([rel_t, rel_t.new_zeros((pad, 3))])
         weights = torch.cat([weights, weights.new_zeros(pad)])
     per = (e + pad) // n_size
-    lo, hi = mesh.rank * per, (mesh.rank + 1) * per
+    lo, hi = line.rank * per, (line.rank + 1) * per
     edges_s, rel_r_s, rel_t_s, w_s = (edges[lo:hi], rel_r[lo:hi],
                                       rel_t[lo:hi], weights[lo:hi])
     step = _xi_dense if solver == "dense" else _xi_cg
@@ -230,7 +237,7 @@ def distributed_pose_graph(graph: PoseGraph, mesh: Mesh,
     with fp32_matmul():
         for _ in range(iterations):
             xi, cost = step(rotations, translations, edges_s, rel_r_s,
-                            rel_t_s, w_s, mesh, damping, anchor_weight,
+                            rel_t_s, w_s, line, damping, anchor_weight,
                             cg_iterations, cg_tol)
             rotations, translations = _apply_update(rotations, translations,
                                                     xi)
@@ -241,31 +248,31 @@ def distributed_pose_graph(graph: PoseGraph, mesh: Mesh,
                                translations=translations), costs
 
 
-def _xi_dense(rotations, translations, edges, rel_r, rel_t, w, mesh,
+def _xi_dense(rotations, translations, edges, rel_r, rel_t, w, line,
               damping, anchor_weight, cg_iterations, cg_tol):
     n6 = 6 * rotations.shape[0]
     h, b = build_normal_equations(rotations, translations, edges, rel_r,
                                   rel_t, w)
-    g = _comm.all_reduce(torch.cat([h.reshape(-1), b]), "sum", mesh)
+    g = _comm.all_reduce(torch.cat([h.reshape(-1), b]), "sum", line)
     b = g[n6 * n6:]
     return _dense_step(g[:n6 * n6].reshape(n6, n6), b, damping,
                        anchor_weight), torch.sum(b * b)
 
 
-def _xi_cg(rotations, translations, edges, rel_r, rel_t, w, mesh, damping,
+def _xi_cg(rotations, translations, edges, rel_r, rel_t, w, line, damping,
            anchor_weight, cg_iterations, cg_tol):
     n = rotations.shape[0]
     # this rank's edges' share of the block diagonal and b, summed over the
-    # mesh; the off-diagonal blocks stay with their rank
+    # line; the off-diagonal blocks stay with their rank
     diag, b, hij = _cg_blocks(rotations, translations, edges, rel_r, rel_t,
                               w)
     g = _comm.all_reduce(torch.cat([diag.reshape(-1), b.reshape(-1)]),
-                         "sum", mesh)
+                         "sum", line)
     diag, diag_chol = _damped(g[:36 * n].reshape(n, 6, 6), damping,
                               anchor_weight)
     b = g[36 * n:].reshape(n, 6)
     # the collective of the CG loop: one (N, 6) all-reduce a product
     x = _pcg_solve(diag_chol, hij, hij.mT, edges[:, 0], edges[:, 1], diag,
                    -b, cg_iterations, cg_tol,
-                   reduce=lambda y: _comm.all_reduce(y, "sum", mesh))
+                   reduce=lambda y: _comm.all_reduce(y, "sum", line))
     return x, torch.sum(b * b)

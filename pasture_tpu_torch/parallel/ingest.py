@@ -51,13 +51,15 @@ def sharded_read_all(paths: Sequence[Union[str, Path]], mesh: Mesh,
                      axis: str = POINTS_AXIS,
                      policy: DevicePolicy = DevicePolicy.NARROW,
                      max_workers: int = 8) -> PointBatch:
-    """Files -> host-parallel read -> this rank's shard on the mesh device:
-    exactly :func:`~.mesh.shard_batch`'s rows of the concatenated batch
-    (capacity padded to a multiple of the size), uploaded alone."""
+    """Files -> host-parallel read -> this rank's shard over ``axis`` on
+    the mesh device: exactly :func:`~.mesh.shard_batch`'s rows of the
+    concatenated batch (capacity padded to a multiple of the axis's size),
+    uploaded alone."""
     host = read_files_parallel(paths, schema, max_workers)
-    n = mesh.shape[axis]
+    line = mesh.along(axis)
+    n = line.size
     per = max((len(host) + n - 1) // n, 1)
-    start = min(mesh.rank * per, len(host))
+    start = min(line.rank * per, len(host))
     rows = host.slice(start, min(start + per, len(host)))
     return PointBatch.from_host(rows, policy=policy, capacity=per,
                                 device=mesh.device)

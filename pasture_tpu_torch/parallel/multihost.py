@@ -46,6 +46,10 @@ def global_mesh(axes: Sequence[str] = (POINTS_AXIS,),
                 shape: Optional[Tuple[int, ...]] = None,
                 device: Optional[Union[str, torch.device]] = None,
                 backend: Optional[str] = None) -> Mesh:
-    """A 1-D mesh over every rank of the world.  A 2-D ``("hosts",
-    "points")`` shape raises (it waits for a multi-card run)."""
+    """A mesh over every rank of the world: 1-D by default; a multi-axis
+    ``shape`` lays the ranks out row-major, e.g. ``axes=("hosts",
+    "points"), shape=(num_hosts, ranks_per_host)`` keeps the collectives
+    of an op sharded over ``"points"`` inside a host (each host's line of
+    ranks) and makes the cross-host traffic explicit (ops over
+    ``"hosts"``)."""
     return make_mesh(None, axes, shape, device=device, backend=backend)

@@ -1,7 +1,9 @@
 """Sharded map-style ops over the mesh.
 
 Port of pasture_tpu/parallel/ops.py.  Each rank computes on its own shard
-and the ranks meet in collectives of statistics only:
+and the ranks meet in collectives of statistics only, on the line of the
+mesh along the op's ``axis`` (:meth:`~.mesh.Mesh.along`): the result is
+sharded over that axis and replicated over the others.
 
 * ``sharded_bounds`` — masked min / max per rank, one all-reduce;
 * ``sharded_voxel_downsample`` — a per-rank voxelize against the global
@@ -45,16 +47,17 @@ def _global_bounds(pos: torch.Tensor, mask: torch.Tensor, mesh: Mesh):
 
 def sharded_bounds(batch: PointBatch, mesh: Mesh, axis: str = POINTS_AXIS
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Global AABB ``(min, max)`` of a sharded batch, the same on every
-    rank: each rank's masked min / max, then one all-reduce."""
+    """Global AABB ``(min, max)`` of a batch sharded over ``axis``, the
+    same on every rank: each rank's masked min / max, then one all-reduce
+    over the axis."""
     return _global_bounds(batch.data[att.POSITION_3D.name],
-                          batch.valid_mask(), mesh)
+                          batch.valid_mask(), mesh.along(axis))
 
 
-def _local_count(batch: PointBatch, per_shard_counts, mesh: Mesh):
+def _local_count(batch: PointBatch, per_shard_counts, line: Mesh):
     if per_shard_counts is None:
         return torch.clamp(batch.count, 0, batch.capacity)
-    return torch.as_tensor(per_shard_counts).to(batch.device)[mesh.rank]
+    return torch.as_tensor(per_shard_counts).to(batch.device)[line.rank]
 
 
 def sharded_voxel_downsample(batch: PointBatch, mesh: Mesh, leaf_size,
@@ -65,32 +68,34 @@ def sharded_voxel_downsample(batch: PointBatch, mesh: Mesh, leaf_size,
     """Two-stage distributed voxel downsample, stage 1.
 
     Every rank voxelizes its shard against the global grid origin (the
-    ranks' bounds' ``min``), with no other communication; a voxel whose
-    points straddle ranks appears once per rank.  ``per_shard_counts``
-    (``(size,)``, after :func:`~.partition.morton_partition`) gives each
-    rank's valid prefix; without it the batch's own count does (a
-    :func:`~.mesh.shard_batch` shard).
+    ``min`` of the bounds of the ranks on its ``axis`` line), with no
+    other communication; a voxel whose points straddle shards appears once
+    per shard.  ``per_shard_counts`` (the axis's length, after
+    :func:`~.partition.morton_partition`) gives each shard's valid prefix;
+    without it the batch's own count does (a :func:`~.mesh.shard_batch`
+    shard).
 
     Returns ``(batch, per_shard_counts)`` — or ``(batch, per_shard_counts,
     aux)`` with ``with_aux`` — where the batch is this rank's voxels (its
-    prefix of ``per_shard_counts[mesh.rank]`` rows) with ``count`` the
-    global total, ``per_shard_counts`` the ``(size,)`` voxel counts of all
-    ranks, and ``aux`` this rank's merge statistics of
-    :func:`~pasture_tpu_torch.ops.voxel_downsample`.  Extra
+    prefix of ``per_shard_counts[r]`` rows, ``r`` its coordinate on
+    ``axis``) with ``count`` the global total, ``per_shard_counts`` the
+    voxel counts of the axis's shards, and ``aux`` this rank's merge
+    statistics of :func:`~pasture_tpu_torch.ops.voxel_downsample`.  Extra
     ``voxel_kwargs`` (``grid_bits``, ``position_quantization_bits``,
     ``sort_tiles``, ``mode_runs`` ...) go to the per-rank call."""
+    line = mesh.along(axis)
     pos = batch.data[att.POSITION_3D.name]
-    count = _local_count(batch, per_shard_counts, mesh)
+    count = _local_count(batch, per_shard_counts, line)
     local = PointBatch(dict(batch.data), count.to(torch.int32),
                        batch.schema, dict(batch.meta), batch.policy)
-    gmin, _ = _global_bounds(pos, local.valid_mask(), mesh)
+    gmin, _ = _global_bounds(pos, local.valid_mask(), line)
     out = voxel_downsample(local, leaf_size, bounds=(gmin, None),
                            semantics=semantics, with_aux=with_aux,
                            **voxel_kwargs)
     aux = None
     if with_aux:
         out, aux = out
-    counts = _comm.all_gather(out.count.to(torch.int64), mesh)
+    counts = _comm.all_gather(out.count.to(torch.int64), line)
     result = PointBatch(out.data, counts.sum().to(torch.int32), batch.schema,
                         batch.meta, batch.policy)
     if with_aux:
@@ -106,9 +111,9 @@ def sharded_voxel_downsample_merged(batch: PointBatch, mesh: Mesh,
     """Distributed voxelize and exact global merge in one call.
 
     :func:`sharded_voxel_downsample` ``with_aux``, then every rank gathers
-    all ranks' voxels and merge statistics (one all-gather of their packed
-    bytes: voxel statistics, bounded by the voxel count, never raw points)
-    and merges them in rank order with
+    the voxels and merge statistics of its ``axis`` line (one all-gather of
+    their packed bytes: voxel statistics, bounded by the voxel count, never
+    raw points) and merges them in shard order with
     :func:`~pasture_tpu_torch.ops.merge_voxel_batches`.  Returns ``(batch,
     aux)``, replicated: the centroid values equal the one-shot
     single-device voxelization for mean / max (mode: exact with
@@ -119,7 +124,7 @@ def sharded_voxel_downsample_merged(batch: PointBatch, mesh: Mesh,
     vox, counts, aux = sharded_voxel_downsample(
         batch, mesh, leaf_size, axis=axis, semantics=semantics,
         per_shard_counts=per_shard_counts, with_aux=True, **voxel_kwargs)
-    parts = _comm.all_gather_tree((vox.data, aux), mesh)
+    parts = _comm.all_gather_tree((vox.data, aux), mesh.along(axis))
     return merge_voxel_batches(
         [(PointBatch(data, counts[r].to(torch.int32), vox.schema, vox.meta,
                      vox.policy), a) for r, (data, a) in enumerate(parts)],
@@ -140,34 +145,36 @@ def distributed_normals(batch: PointBatch, mesh: Mesh, k: int,
 
     Returns ``(part, normals, curvature, counts, dropped)``: ``part`` is
     this rank's block of the partitioned positions, which the results align
-    with row for row (rows past ``counts[mesh.rank]`` are not points),
-    ``counts`` / ``dropped`` the partition's ``(size,)`` counts."""
+    with row for row (rows past ``counts[r]`` are not points, ``r`` this
+    rank's coordinate on ``axis``), ``counts`` / ``dropped`` the
+    partition's counts, of the axis's length."""
     pos_name = att.POSITION_3D.name
     pos_only = PointBatch({pos_name: batch.data[pos_name]}, batch.count,
                           batch.schema, {}, batch.policy)
     part, counts, dropped = morton_partition(
         pos_only, mesh, axis, capacity_factor, sort_local=True)
-    n = mesh.shape[axis]
+    line = mesh.along(axis)
     pos_s = part.data[pos_name]
-    cnt = counts.to(pos_s.device)[mesh.rank]
-    normal, curvature = halo_window_fit(pos_s, cnt, n, k, window, mesh)
+    cnt = counts.to(pos_s.device)[line.rank]
+    normal, curvature = halo_window_fit(pos_s, cnt, line.size, k, window,
+                                        mesh, axis)
     return part, normal, curvature, counts, dropped
 
 
 def halo_window_fit(pos_s: torch.Tensor, cnt: torch.Tensor, n: int, k: int,
-                    w: int, mesh: Mesh):
+                    w: int, mesh: Mesh, axis: str = POINTS_AXIS):
     """Window-fit normals of a rank's sorted block ``pos_s`` (valid prefix
     ``cnt``) padded with ``w`` halo rows of each ring neighbour, the
-    reference's layout: the block's ``cap`` rows between the halos, rows
-    past the count ``inf``.  Only the valid rows are fitted (their
-    windows, ``[i, i + 2w]`` of the padded array, hold the same candidates
-    as in the reference; the count is read on the host once); rows past
-    the count come back zero.  Returns ``(normal (cap, 3), curvature
+    reference's layout (the ring of the mesh's ``axis`` line): the block's
+    ``cap`` rows between the halos, rows past the count ``inf``.  Only the
+    valid rows are fitted (their windows, ``[i, i + 2w]`` of the padded
+    array, hold the same candidates as in the reference; the count is read
+    on the host once); rows past the count come back zero.  Returns ``(normal (cap, 3), curvature
     (cap,))``."""
     from ..algorithms.normals import window_fit
 
     halo_cols, halo_counts = halo_exchange_local({"pos": pos_s}, cnt, n, w,
-                                                 mesh)
+                                                 mesh, axis)
     hpos = halo_cols["pos"]
     hidx = torch.arange(w, device=pos_s.device)
     inf = torch.full_like(hpos[:w], float("inf"))

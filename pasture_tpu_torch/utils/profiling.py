@@ -31,10 +31,14 @@ H100_F32_FLOPS = 67e12       # FLOP/s, fp32 without tensor cores
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
+def trace(log_dir: str, create_perfetto_link: bool = False):
     """``torch.profiler`` trace of the block, CPU and (when present) CUDA
     activity, written as a Chrome trace ``trace.json`` under ``log_dir``
-    (open it in Perfetto or chrome://tracing)."""
+    (open it in Perfetto or chrome://tracing).
+
+    ``create_perfetto_link`` is accepted for the reference's callers and
+    ignored: the Chrome trace opens in Perfetto as it is, and no link is
+    served."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

@@ -4,6 +4,7 @@ bit-equal, device path to f32 summation order), ``calculate_bounds``,
 ``minmax_attribute``, ``sort_by_keys``, ``morton_sort`` — the matching cases
 of tests/test_algorithms.py and tests/test_ops.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -114,7 +115,8 @@ def test_voxelgrid_filter_device_path_matches_jax(rng):
     cols = _columns(rng, 500)
     jhost, phost = _host_buffers({n: cols[n] for n in names})
     jb, pb = _batches(jhost, phost, 512)
-    want = jalg.voxelgrid_filter(jb, 1.0)
+    # under one jax.jit: eager, the device path dispatches op by op
+    want = jax.jit(lambda b: jalg.voxelgrid_filter(b, 1.0))(jb)
     got = alg.voxelgrid_filter(pb, 1.0)
     assert isinstance(got, PointBatch)
     nv = int(want.count)

@@ -319,3 +319,76 @@ def test_concatenate_compacts_every_column_in_one_call(rng, monkeypatch):
     assert calls == [(3, 24)]
     np.testing.assert_array_equal(out.to_host().get("Intensity"),
                                   np.tile(cols["Intensity"], 3))
+
+
+def test_top_level_aabb_as_the_reference_calls_it(rng):
+    """``pasture_tpu_torch.AABB`` is the math module's, and the reference's
+    top-level calls give the same boxes."""
+    import pasture_tpu
+    import pasture_tpu_torch
+    from pasture_tpu_torch.math import aabb
+
+    assert pasture_tpu_torch.AABB is aabb.AABB
+    pts = rng.uniform(-5, 5, (64, 3))
+    mine = pasture_tpu_torch.AABB.from_points(pts)
+    ref = pasture_tpu.AABB.from_points(pts)
+    for got, want in ((mine, ref),
+                      (mine.as_cubic(), ref.as_cubic()),
+                      (mine.extend_with_point([9.0, 0.0, 0.0]),
+                       ref.extend_with_point([9.0, 0.0, 0.0]))):
+        np.testing.assert_array_equal(got.min, want.min)
+        np.testing.assert_array_equal(got.max, want.max)
+    assert mine.contains(pts[0]) == ref.contains(pts[0])
+
+
+def test_math_align_to_as_the_reference_calls_it():
+    from pasture_tpu import math as jmath
+    from pasture_tpu_torch import math as tmath
+
+    assert "align_to" in tmath.__all__
+    for value, alignment in ((0, 8), (1, 8), (8, 8), (13, 4), (7, 1),
+                             (5, 0), (100, 64)):
+        assert tmath.align_to(value, alignment) == \
+            jmath.align_to(value, alignment)
+
+
+@pytest.mark.parametrize("tiles", (0, 1, 4))
+def test_compact_columns_takes_tiles_and_ignores_it(rng, tiles):
+    """``compact_columns(cols, keep, tiles=)`` as the reference's callers
+    write it: the kept prefix and count equal the JAX package's and the
+    port's own call without ``tiles``."""
+    from pasture_tpu.ops.compact import compact_columns as j_compact
+    from pasture_tpu_torch.ops import compact_columns
+
+    n = 1000
+    cols = [rng.integers(0, 1 << 30, n).astype(np.int32),
+            rng.uniform(0, 1, n).astype(np.float32)]
+    keep = rng.uniform(0, 1, n) < 0.4
+    got, count = compact_columns([T(c) for c in cols], T(keep), tiles=tiles)
+    plain, plain_count = compact_columns([T(c) for c in cols], T(keep))
+    want, want_count = j_compact([jnp.asarray(c) for c in cols],
+                                 jnp.asarray(keep), tiles=tiles)
+    k = int(want_count)
+    assert int(count) == int(plain_count) == k == int(keep.sum())
+    for g, p, w in zip(got, plain, want):
+        assert torch.equal(g, p)
+        np.testing.assert_array_equal(g[:k].numpy(), np.asarray(w)[:k])
+
+
+def test_profiling_trace_takes_create_perfetto_link(tmp_path):
+    """``trace(log_dir, create_perfetto_link=...)`` as the reference's
+    callers write it: the Chrome trace is written; the flag sits where the
+    reference's does, second, defaulting to False."""
+    import inspect
+
+    from pasture_tpu.utils import profiling as jprofiling
+    from pasture_tpu_torch.utils.profiling import trace
+
+    params = list(inspect.signature(trace).parameters.values())
+    want = list(inspect.signature(
+        inspect.unwrap(jprofiling.trace)).parameters.values())
+    assert [(p.name, p.default) for p in params] == \
+        [(p.name, p.default) for p in want]
+    with trace(str(tmp_path), create_perfetto_link=True):
+        torch.ones(8).sum()
+    assert (tmp_path / "trace.json").stat().st_size > 0

@@ -12,9 +12,13 @@ within 1e-12 on the diagonal cloud (same inliers), within 5e-3 on the 2-D
 manifold, and point-to-plane within 5e-3 of the truth; the dense pose
 graph = ``optimize_pose_graph`` within 1e-8 and CG = dense within 1e-6;
 ``distributed_normals`` > 0.97 within 10° of the exact normals;
-``RegistrationPipeline(mesh=)`` = the pipeline without a mesh.  The
-rehearsal runs ``chip_smoke.distributed_world`` in the same world at small
-sizes and ``chip_smoke.gate_distributed`` on what comes back."""
+``RegistrationPipeline(mesh=)`` = the pipeline without a mesh.  The same
+cases run again over ``"points"`` of a ("hosts", "points") mesh of shape
+(2, 2) in the same world, held to the same bounds, every result the same
+on both ``hosts`` rows.  The rehearsal runs
+``chip_smoke.distributed_world`` in the same world at small sizes (its
+2-D mesh step included) and ``chip_smoke.gate_distributed`` /
+``gate_mesh2d`` on what comes back."""
 
 import json
 from concurrent.futures import ThreadPoolExecutor
@@ -232,9 +236,15 @@ def test_pose_graph_cg_matches_dense(world):
 
 def test_distributed_normals_match_exact(world):
     inp, port, single, _ = world
-    pos = np.concatenate([r["normals"]["pos"] for r in port])
-    nrm = np.concatenate([r["normals"]["normals"] for r in port])
-    assert not port[0]["normals"]["dropped"].any()
+    _check_normals([r["normals"] for r in port], inp, single)
+
+
+def _check_normals(shards, inp, single):
+    """Shards of ``distributed_normals`` in order: every point once, > 0.97
+    of the normals within 10° of the exact ones."""
+    pos = np.concatenate([s["pos"] for s in shards])
+    nrm = np.concatenate([s["normals"] for s in shards])
+    assert not shards[0]["dropped"].any()
     o1, o2 = np.lexsort(pos.T), np.lexsort(inp["normals"].T)
     np.testing.assert_array_equal(pos[o1], inp["normals"][o2])
     cos = np.abs(np.sum(nrm[o1] * single["normals"][o2], axis=1))
@@ -296,3 +306,113 @@ def test_rehearsal_worlds_compare(world):
                                      pos=a[0]["partition"]["pos"][1:]))]
     with pytest.raises(AssertionError):
         chip_smoke.compare_worlds(bad, b)
+
+
+def _nd(port):
+    """Each rank's results over ``"points"`` of the (2, 2) mesh."""
+    return [r["nd"] for r in port]
+
+
+def test_nd_distributed_icp_matches_jax_and_icp(world):
+    _, port, single, _ = world
+    nd = _nd(port)
+    t = _replicated(nd, lambda r: r["icp"]["translation"])
+    rot = _replicated(nd, lambda r: r["icp"]["rotation"])
+    j_rot, j_t, j_inliers = single["jax_icp"]
+    np.testing.assert_allclose(t, j_t, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(rot, j_rot, rtol=0, atol=1e-9)
+    assert nd[0]["icp"]["num_inliers"] == int(j_inliers)
+    np.testing.assert_allclose(t, single["icp"].translation.numpy(),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("name,atol", (("diagonal", 1e-12),
+                                       ("manifold", 5e-3)))
+def test_nd_partitioned_icp_matches_icp(world, name, atol):
+    _, port, single, _ = world
+    nd = _nd(port)
+    t = _replicated(nd, lambda r: r[name]["translation"])
+    rot = _replicated(nd, lambda r: r[name]["rotation"])
+    assert nd[0][name]["dropped"] == 0
+    np.testing.assert_allclose(t, T_TRUE, atol=5e-3)
+    np.testing.assert_allclose(t, single[name].translation.numpy(),
+                               atol=atol)
+    np.testing.assert_allclose(rot, single[name].rotation.numpy(), atol=atol)
+    if name == "diagonal":
+        assert nd[0][name]["num_inliers"] == int(single[name].num_inliers)
+
+
+def test_nd_partitioned_icp_point_to_plane(world):
+    _, port, _, _ = world
+    nd = _nd(port)
+    t = _replicated(nd, lambda r: r["plane"]["translation"])
+    assert nd[0]["plane"]["dropped"] == 0
+    np.testing.assert_allclose(t, [0.05, -0.04, 0.08], atol=5e-3)
+    np.testing.assert_allclose(nd[0]["plane"]["rotation"], np.eye(3),
+                               atol=5e-3)
+
+
+@pytest.mark.parametrize("name", ("dense16", "dense32"))
+def test_nd_pose_graph_dense_matches_single_device(world, name):
+    _, port, single, _ = world
+    nd = _nd(port)
+    t = _replicated(nd, lambda r: r["pose_graph"][name]["translations"])
+    np.testing.assert_allclose(t, single[name].translations.numpy(),
+                               atol=1e-8)
+    np.testing.assert_allclose(nd[0]["pose_graph"][name]["rotations"],
+                               single[name].rotations.numpy(), atol=1e-8)
+
+
+def test_nd_pose_graph_cg_matches_dense(world):
+    _, port, _, _ = world
+    nd = _nd(port)
+    cg = _replicated(nd, lambda r: r["pose_graph"]["cg32"]["translations"])
+    dense = nd[0]["pose_graph"]["dense32"]
+    np.testing.assert_allclose(cg, dense["translations"], atol=1e-6)
+    np.testing.assert_allclose(nd[0]["pose_graph"]["cg32"]["costs"],
+                               dense["costs"], rtol=1e-6, atol=1e-10)
+
+
+def test_nd_distributed_normals_match_exact(world):
+    """The two ``points`` shards hold every point once; the ``hosts`` rows
+    hold the same shards bit for bit."""
+    inp, port, single, _ = world
+    nd = _nd(port)
+    for r in (2, 3):
+        for k in ("pos", "normals"):
+            np.testing.assert_array_equal(nd[r]["normals"][k],
+                                          nd[r - 2]["normals"][k])
+    _check_normals([r["normals"] for r in nd[:2]], inp, single)
+
+
+def test_nd_pipeline_with_mesh_matches_pipeline(world):
+    _, port, single, _ = world
+    traj = _replicated(_nd(port), lambda r: r["pipeline"])
+    assert traj.shape == single["pipeline"].shape == (3, 3)
+    np.testing.assert_allclose(traj, single["pipeline"], atol=2e-2)
+
+
+def test_rehearsal_of_the_2d_mesh_gates(world):
+    """``chip_smoke.py``'s 2-D mesh step of world (b) at small sizes: every
+    gate passes (the ``hosts`` rows equal), its line is JSON; a rank whose
+    results differ from its ``hosts`` twin is refused."""
+    _, port, _, (cfg, refs) = world
+    ranks_out = [r["rehearsal"] for r in port]
+    g = chip_smoke.gate_mesh2d(ranks_out, refs, cfg)
+    assert g["quantized_max_err"] == 0.0
+    assert g["normals_within_6deg"] >= 0.99
+    assert g["pose_cg_vs_single_dense"] <= 1e-6
+    assert g["pose_cg_hosts_max_diff_m"] == 0.0      # no atomics on the CPU
+    line = chip_smoke.mesh2d_line(ranks_out, cfg, g, "cpu")
+    assert set(line["seconds"]) == {
+        "sharded_bounds", "sharded_voxel_downsample",
+        "sharded_voxel_downsample_merged", "morton_partition_halo",
+        "distributed_normals", "distributed_icp_partitioned",
+        "pose_graph_cg"}
+    assert line["staged_bytes"]["sharded_bounds"] == 0
+    json.dumps(line)
+    bad = [dict(r) for r in ranks_out]
+    bad[3] = dict(bad[3], mesh2d=dict(bad[3]["mesh2d"], digest=dict(
+        bad[3]["mesh2d"]["digest"], normals="0")))
+    with pytest.raises(AssertionError, match="hosts twin"):
+        chip_smoke.gate_mesh2d(bad, refs, cfg)

@@ -15,7 +15,18 @@ and merge statistics meet ``test_torch_voxel_merge.py``'s tolerances
 (centroids 1e-5, integer means within 1, statistics and run tables
 exact); the merged voxelize equals the port's single-device result as
 ``tests/test_parallel.py`` holds the reference's (centroids rtol 1e-9,
-integer means within 1, mode exact with run tables)."""
+integer means within 1, mode exact with run tables).
+
+The same world also lays its four ranks out as a ``("hosts", "points")``
+mesh of shape (2, 2) and as a three-axis (1, 2, 2) mesh; over each axis of
+the 2-D mesh the port's shard, partition (and spec), halo, bounds and
+shard voxel partials must equal the JAX package's on ``make_mesh(4,
+axes=("hosts", "points"), shape=(2, 2))`` (each axis under one
+``jax.jit``) bit for bit, every rank holding the block of its coordinate
+on the axis (of the partials, all but the centroids, which keep the 1e-5
+of the 1-D case); the three-axis mesh over ``"points"`` must give the 2-D
+mesh's results.  The merged voxelize on each equals the single device as
+on the 1-D meshes."""
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -47,6 +58,10 @@ from pasture_tpu_torch.parallel.spawn import run_world
 
 POS, INT, CLS = "Position3D", "Intensity", "Classification"
 SIZE = 4
+ND_SHAPE = {"hosts": 2, "points": 2}
+# (the ranks' case, the JAX case it must equal, the axis)
+ND_CASES = (("points", "points"), ("hosts", "hosts"),
+            ("three_axes_points", "points"))
 N, CAP = 1000, 1024
 HALO = 16
 LEAF = 1.0
@@ -84,12 +99,12 @@ def _inputs(workdir) -> dict:
             "merge_count": N, "halo": HALO, "leaf": LEAF, "files": files}
 
 
-def _jbatch(cols, count, mesh):
+def _jbatch(cols, count, mesh, axis="points"):
     schema = JPointSchema.from_attributes(
         [x for n in cols for x in jatt.BUILTIN_ATTRIBUTES if x.name == n])
     batch = jdev.PointBatch({k: jnp.asarray(v) for k, v in cols.items()},
                             jnp.asarray(count, jnp.int32), schema, {})
-    return j_shard(batch, mesh)
+    return j_shard(batch, mesh, axis)
 
 
 def _np(tree):
@@ -119,14 +134,41 @@ def _jax_side(inp) -> dict:
     return out
 
 
+def _jax_nd(inp, axis) -> dict:
+    """The JAX package over ``axis`` of the (2, 2) ("hosts", "points")
+    mesh: shard, bounds, sorted partition and its spec, the co-partition,
+    halo and the shard voxel partials, under one ``jax.jit``."""
+    mesh = j_make_mesh(SIZE, axes=("hosts", "points"), shape=(2, 2))
+    a, b, v = (_jbatch(inp[k], c, mesh, axis)
+               for k, c in (("a", N), ("b", 700), ("vox", N)))
+
+    def run(a, b, v):
+        bounds = j_bounds(a, mesh, axis)
+        p, c, d, spec = j_partition(a, mesh, axis, capacity_factor=4.0,
+                                    return_spec=True, sort_local=True)
+        co = j_partition(b, mesh, axis, capacity_factor=4.0, spec=spec)
+        halo = j_halo(p, c, mesh, HALO, axis)
+        vox = j_voxel(v, mesh, LEAF, axis, with_aux=True, mode_runs=True)
+        return bounds, (p, c, d), tuple(spec), co, halo, vox
+    out = dict(zip(("bounds", "sorted", "spec_of_sorted", "spec", "halo",
+                    "voxels"), _np(jax.jit(run)(a, b, v))))
+    out["shard_a"] = _np(a.data)
+    return out
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """``(inputs, each rank's results, the JAX package's results)``."""
     inp = _inputs(tmp_path_factory.mktemp("parallel"))
-    with ThreadPoolExecutor(max_workers=1) as ex:
+    with ThreadPoolExecutor(max_workers=3) as ex:
         port = ex.submit(run_world, ranks.parallel_cases, SIZE, (inp,),
                          "cpu", None, 600.0)
+        # XLA compiles with the interpreter lock released: the 2-D mesh's
+        # two programs compile beside the 1-D ones
+        nd = {axis: ex.submit(_jax_nd, inp, axis)
+              for axis in ("points", "hosts")}
         ref = _jax_side(inp)
+        ref["nd"] = {axis: f.result() for axis, f in nd.items()}
         return inp, port.result(), ref
 
 
@@ -140,7 +182,11 @@ def test_world_meshes_and_shards(world):
         assert res["world"] == SIZE
         for k, m in res["meshes"].items():
             assert m == ((r, k, "gloo", {"points": k}) if r < k else None)
-        assert "2-D" in res["two_axes"]
+        # the 2-D mesh of global_mesh: row-major coordinates, one line a
+        # rank along each axis
+        h, p = divmod(r, 2)
+        assert res["two_axes"] == (r, SIZE, "gloo", ND_SHAPE, (h, p),
+                                   {"hosts": (h, 2), "points": (p, 2)})
         per = CAP // SIZE
         assert res["shard_a"]["count"] == min(max(N - r * per, 0), per)
         for name, col in inp["a"].items():
@@ -194,18 +240,35 @@ def test_sharded_bounds_match_jax(world):
 def test_sharded_voxel_partials_match_jax(world):
     """Per-shard voxels and merge statistics, run tables included."""
     _, port, ref = world
-    jbatch, jcounts, jaux = ref["voxels"]
-    jauxes = interop.aux_shards_from_reference(jaux, SIZE)
-    for r, res in enumerate(port):
-        got = res["voxels"]
+    _check_voxel_partials([res["voxels"] for res in port], ref["voxels"],
+                          SIZE, None)
+
+
+def _check_voxel_partials(ranks_got, ref, size, axis, exact=False):
+    """Each rank's voxels and merge statistics against its block of the
+    JAX package's (``size`` and ``axis`` as ``interop
+    .shards_from_reference`` takes them); ``exact``: the integer means and
+    raw means too bit for bit.  Centroids stay within 1e-5: the port sums
+    an f32 mean in f64 (``test_torch_voxel_merge.py``), one ulp off
+    JAX's f32 sum on some voxels."""
+    jbatch, jcounts, jaux = ref
+    jauxes = interop.aux_shards_from_reference(jaux, size, axis)
+    coord = interop.shards_from_reference(np.arange(len(jcounts)), size,
+                                          axis)
+    for r, got in enumerate(ranks_got):
         np.testing.assert_array_equal(got["counts"], jcounts)
         assert got["count"] == int(jbatch.count) == int(jcounts.sum())
-        nv = int(jcounts[r])
-        want = {k: _shards(v)[r] for k, v in jbatch.data.items()}
+        nv = int(jcounts[int(coord[r][0])])
+        want = {k: interop.shards_from_reference(v, size, axis)[r]
+                for k, v in jbatch.data.items()}
         np.testing.assert_allclose(got["data"][POS][:nv], want[POS][:nv],
                                    rtol=0, atol=1e-5)
         np.testing.assert_array_equal(got["data"][CLS][:nv],
                                       want[CLS][:nv])
+        if exact:
+            np.testing.assert_array_equal(
+                got["data"][INT][:nv],
+                want[INT][:nv].astype(got["data"][INT].dtype))
         di = got["data"][INT][:nv].astype(np.int64) - want[INT][:nv]
         assert np.abs(di).max() <= 1
         aux = interop.aux_to_reference(interop.aux_from_reference(
@@ -220,6 +283,9 @@ def test_sharded_voxel_partials_match_jax(world):
         for n, v in want_aux["raw_means"].items():
             np.testing.assert_allclose(aux["raw_means"][n][:nv], v[:nv],
                                        rtol=1e-6)
+            if exact:
+                np.testing.assert_array_equal(aux["raw_means"][n][:nv],
+                                              v[:nv])
         rt, want_rt = aux["mode_runs"][CLS], want_aux["mode_runs"][CLS]
         for k in ("values", "counts", "num_runs"):
             np.testing.assert_array_equal(rt[k], want_rt[k], err_msg=k)
@@ -330,3 +396,157 @@ def test_interop_carries_shards_and_specs(world):
     for got, want in zip(interop.spec_to_reference(spec),
                          ref["spec_of_sorted"]):
         np.testing.assert_array_equal(got, want)
+
+
+def _nd(world, case):
+    """``(each rank's results, the JAX package's, the axis, shards of a
+    JAX global array for each rank)`` of an N-D mesh case."""
+    _, port, ref = world
+    axis = dict((c, a) for c, a in ND_CASES)[case]
+    return ([res["nd"][case] for res in port], ref["nd"][axis], axis,
+            lambda x: interop.shards_from_reference(x, ND_SHAPE, axis))
+
+
+def test_nd_mesh_needs_shape_and_lays_out_three_axes(world):
+    _, port, _ = world
+    for r, res in enumerate(port):
+        assert "shape required" in res["nd"]["no_shape"]
+        # the ranks outside a mesh of the first two get None, and its
+        # ranks run a collective on it
+        assert res["nd"]["first_two"] == (((0, r), 1) if r < 2 else None)
+        h, p = divmod(r, 2)
+        assert res["nd"]["three_axes"] == (
+            {"slices": 1, "hosts": 2, "points": 2}, (0, h, p),
+            {"slices": (0, 1), "hosts": (h, 2), "points": (p, 2)})
+
+
+def test_nd_collectives_counted_once(world):
+    """One sharded_bounds over an axis of the 2-D mesh is one all-reduce
+    of six values on each rank, and nothing else."""
+    _, port, _ = world
+    for res in port:
+        c = res["nd"]["bounds_collectives"]
+        assert c["all_reduce"] == {"calls": 1, "bytes": 6 * 8}
+        assert all(c[k]["calls"] == 0 for k in
+                   ("all_gather", "all_to_all", "ring"))
+
+
+@pytest.mark.parametrize("case", [c for c, _ in ND_CASES])
+def test_nd_shard_matches_jax(world, case):
+    got, ref, axis, shards = _nd(world, case)
+    per = CAP // ND_SHAPE[axis]
+    for r, res in enumerate(got):
+        coord = divmod(r, 2)[("hosts", "points").index(axis)]
+        assert res["shard_a"]["count"] == min(max(N - coord * per, 0), per)
+        for name, col in ref["shard_a"].items():
+            np.testing.assert_array_equal(
+                res["shard_a"]["data"][name],
+                shards(col)[r].astype(res["shard_a"]["data"][name].dtype))
+
+
+@pytest.mark.parametrize("case", [c for c, _ in ND_CASES])
+@pytest.mark.parametrize("part", ("sorted", "spec"))
+def test_nd_partition_matches_jax_bit_for_bit(world, case, part):
+    got, ref, axis, shards = _nd(world, case)
+    jbatch, jcounts, jdropped = ref[part]
+    assert jcounts.shape == (2,)
+    for r, res in enumerate(got):
+        np.testing.assert_array_equal(res[part]["counts"], jcounts)
+        np.testing.assert_array_equal(res[part]["dropped"], jdropped)
+        assert res[part]["count"] == int(jbatch.count)
+        for name, col in jbatch.data.items():
+            np.testing.assert_array_equal(
+                res[part]["data"][name],
+                shards(col)[r].astype(res[part]["data"][name].dtype),
+                err_msg=f"{case} {part} {name} {r}")
+
+
+@pytest.mark.parametrize("case", [c for c, _ in ND_CASES])
+def test_nd_partition_spec_matches_jax(world, case):
+    got, ref, _, _ = _nd(world, case)
+    for res in got:
+        for g, w in zip(res["sorted"]["spec"], ref["spec_of_sorted"]):
+            np.testing.assert_array_equal(g, w)
+            assert g.dtype == w.dtype
+
+
+@pytest.mark.parametrize("case", [c for c, _ in ND_CASES])
+def test_nd_halo_matches_jax(world, case):
+    got, ref, _, shards = _nd(world, case)
+    jcols, jcounts = ref["halo"]
+    for r, res in enumerate(got):
+        cols, counts = res["halo"]
+        np.testing.assert_array_equal(counts, shards(jcounts)[r][0])
+        for name, col in jcols.items():
+            np.testing.assert_array_equal(
+                cols[name], shards(col)[r].astype(cols[name].dtype))
+
+
+@pytest.mark.parametrize("case", [c for c, _ in ND_CASES])
+def test_nd_bounds_match_jax(world, case):
+    got, ref, _, _ = _nd(world, case)
+    for res in got:
+        for g, w in zip(res["bounds"], ref["bounds"]):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("case", [c for c, _ in ND_CASES])
+def test_nd_voxel_partials_match_jax(world, case):
+    got, ref, axis, _ = _nd(world, case)
+    _check_voxel_partials([res["voxels"] for res in got], ref["voxels"],
+                          ND_SHAPE, axis, exact=True)
+
+
+@pytest.mark.parametrize("case", [c for c, _ in ND_CASES])
+def test_nd_merged_voxelize_equals_single_device(world, case):
+    inp, _, _ = world
+    got, _, _, _ = _nd(world, case)
+    full = ranks.host_batch(inp["merge"], N)
+    single = voxel_downsample(full, LEAF, semantics="floor",
+                              bounds=(full.data[POS][:N].amin(0), None))
+    nv = int(single.count)
+    for res in got:
+        m = res["merged"]
+        assert m["count"] == nv and int(m["counts"].sum()) == N
+        np.testing.assert_allclose(m["data"][POS][:nv],
+                                   single.data[POS][:nv].numpy(),
+                                   rtol=1e-9, atol=1e-9)
+        assert np.abs(m["data"][INT][:nv].astype(np.int64)
+                      - single.data[INT][:nv].numpy()).max() <= 1
+        np.testing.assert_array_equal(m["data"][CLS][:nv],
+                                      single.data[CLS][:nv].numpy())
+        for n in m["data"]:
+            np.testing.assert_array_equal(m["data"][n],
+                                          got[0]["merged"]["data"][n])
+
+
+@pytest.mark.parametrize("case", [c for c, _ in ND_CASES])
+def test_nd_sharded_read_all(world, case):
+    inp, _, _ = world
+    got, _, axis, _ = _nd(world, case)
+    host = HostPointBuffer.concat([read_all(p) for p in inp["files"]])
+    per = len(host) // ND_SHAPE[axis]
+    for r, res in enumerate(got):
+        c = divmod(r, 2)[("hosts", "points").index(axis)]
+        assert res["read"]["count"] == per
+        for name in host.schema.names:
+            want = host.columns[name][c * per:(c + 1) * per]
+            np.testing.assert_array_equal(
+                res["read"]["data"][name],
+                want.astype(res["read"]["data"][name].dtype))
+
+
+@pytest.mark.parametrize("axis", ("points", "hosts"))
+def test_nd_interop_carries_shards(world, axis):
+    """A JAX array sharded over one axis of the (2, 2) mesh: every rank's
+    block by its coordinate on the axis, and the line through rank 0 joins
+    back to the array."""
+    _, _, ref = world
+    col = ref["nd"][axis]["sorted"][0].data[POS]
+    blocks = interop.shards_from_reference(col, ND_SHAPE, axis)
+    assert len(blocks) == SIZE
+    for r, b in enumerate(blocks):
+        c = divmod(r, 2)[("hosts", "points").index(axis)]
+        np.testing.assert_array_equal(b, np.split(col, 2)[c])
+    np.testing.assert_array_equal(
+        interop.shards_to_reference(blocks, ND_SHAPE, axis), col)

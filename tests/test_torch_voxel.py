@@ -4,6 +4,7 @@ against the Pallas kernel in interpret mode (all three position forms), the
 quantized and the exact-f32 paths with and without precomputed keys, and
 the exact transform + voxelize slice as a whole."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +35,12 @@ def _jax_batch(columns, count, names):
         [a for n in names for a in jatt.BUILTIN_ATTRIBUTES if a.name == n])
     return jdev.PointBatch({k: jnp.asarray(v) for k, v in columns.items()},
                            jnp.asarray(count, jnp.int32), schema, {})
+
+
+def _jax_voxel(jbatch, leaf, **kw):
+    """The JAX package's ``voxel_downsample`` under one ``jax.jit`` (eager,
+    it dispatches op by op)."""
+    return jax.jit(lambda b: jvoxel.voxel_downsample(b, leaf, **kw))(jbatch)
 
 
 def _port_batch(jbatch, names):
@@ -104,15 +111,14 @@ def test_generic_voxel_downsample_matches_jax(rng, semantics, grid_bits,
     kw = dict(semantics=semantics, grid_bits=grid_bits,
               sort_tiles=sort_tiles)
     bounds = np.zeros(3, np.float32)
-    want = jvoxel.voxel_downsample(jbatch, 2.0,
-                                   bounds=(jnp.asarray(bounds), None), **kw)
+    want = _jax_voxel(jbatch, 2.0, bounds=(jnp.asarray(bounds), None), **kw)
     got = voxel_downsample(pbatch, 2.0, bounds=(T(bounds), None), **kw)
     # f32 sums taken in another order: a few ulp of values below 1e5
     nv = _assert_batches_agree(want, got, dict(rtol=1e-6, atol=2e-5))
     assert nv < n - 300                       # voxels do merge points
     assert not got.data[POS][nv:].any()       # rows past count are zero
     # data-driven bounds
-    want = jvoxel.voxel_downsample(jbatch, 2.0, **kw)
+    want = _jax_voxel(jbatch, 2.0, **kw)
     got = voxel_downsample(pbatch, 2.0, **kw)
     _assert_batches_agree(want, got, dict(rtol=1e-6, atol=2e-5))
 
@@ -299,7 +305,7 @@ def test_exact_transform_voxelize_slice_matches_jax(rng):
     jb = _jax_batch({INT: inten, CLS: cls}, n, (POS, INT, CLS))
     jvoxel._FORCE_FUSED_REDUCE = False
     try:
-        want = jvoxel.voxel_downsample(
+        want = _jax_voxel(
             jb, chip_smoke.LEAF, bounds=(bmin, None), semantics="floor",
             grid_bits=10, sort_tiles=tiles, precomputed=(keys, rword),
             local_affine=affine)
@@ -374,7 +380,7 @@ def test_fast_paths_match_jax_generic_path(rng, semantics, qbits):
     pb = _port_batch(jb, SLAB_NAMES)
     kw = dict(semantics=semantics, grid_bits=10, sort_tiles=tiles,
               position_quantization_bits=qbits)
-    want = _jax_forced(False, lambda: jvoxel.voxel_downsample(
+    want = _jax_forced(False, lambda: _jax_voxel(
         jb, 2.0, bounds=(jnp.asarray(ZERO3), None), **kw))
     # tests/test_pallas_kernels.py holds the JAX package's own two paths to
     # these bounds: atol 2e-5 (quantized), 1e-4 (f32 sums in another order)
@@ -410,7 +416,7 @@ def test_fast_paths_match_jax_fused_reduce(rng, qbits):
     pb = _port_batch(jb, SLAB_NAMES)
     kw = dict(semantics="floor", grid_bits=10, sort_tiles=tiles,
               position_quantization_bits=qbits)
-    want = _jax_forced(True, lambda: jvoxel.voxel_downsample(
+    want = _jax_forced(True, lambda: _jax_voxel(
         jb, 2.0, bounds=(jnp.asarray(ZERO3), None), **kw))
     got = voxel_downsample(pb, 2.0, bounds=(T(ZERO3), None), **kw)
     _assert_batches_agree(
@@ -450,7 +456,7 @@ def test_quantized_precomputed_path_matches_jax(rng, semantics):
     pb = _port_batch(jb, SLAB_NAMES)
     kw = dict(semantics=semantics, grid_bits=10,
               position_quantization_bits=qbits)
-    want = _jax_forced(False, lambda: jvoxel.voxel_downsample(
+    want = _jax_forced(False, lambda: _jax_voxel(
         jb, leaf, bounds=(jnp.asarray(BMIN), None),
         precomputed=(keys, qword), **kw))
     # (a) the same words, as carriers, through the port's generic path
@@ -492,7 +498,7 @@ def test_exact_f32_precomputed_path_matches_jax(rng):
                                  jnp.asarray(ZERO3), "floor", 10)
     keys = jvoxel._keys(cells, jb.valid_mask(), 10)[0]
     kw = dict(semantics="floor", grid_bits=10, sort_tiles=tiles)
-    want = _jax_forced(False, lambda: jvoxel.voxel_downsample(
+    want = _jax_forced(False, lambda: _jax_voxel(
         jb, 2.0, bounds=(jnp.asarray(ZERO3), None), precomputed=(keys, None),
         **kw))
     pkeys = T(np.asarray(keys).astype(np.int64))
@@ -535,7 +541,7 @@ def test_quantization_falls_back_silently_to_the_exact_path(rng, kw):
     for name in SLAB_NAMES:
         assert torch.equal(got.data[name], exact.data[name]), name
     if kw["position_quantization_bits"] == 11:
-        want = jvoxel.voxel_downsample(
+        want = _jax_voxel(
             jb, 2.0, bounds=(jnp.asarray(ZERO3), None), **kw)
         _assert_batches_agree(want, got, dict(rtol=1e-6, atol=2e-5))
 
