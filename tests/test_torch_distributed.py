@@ -43,6 +43,10 @@ from pasture_tpu_torch.registration import icp, optimize_pose_graph
 from pasture_tpu_torch.parallel.spawn import run_world
 
 SIZE = 4
+# the world's ranks stop before the test's own time limit, so a stuck rank
+# fails with the ranks named (the world took 94 s on a loaded test run)
+WORLD_TIMEOUT_S = 240.0
+pytestmark = pytest.mark.time_limit(300)
 T_TRUE = np.array([0.1, -0.08, 0.05])
 PIPELINE = {"voxel_size": 0.25, "keyframe_distance": 0.05,
             "icp_iterations": 8, "distributed_halo": 64}
@@ -161,7 +165,7 @@ def world(tmp_path_factory):
     cfg = inp["rehearsal"][1]
     with ThreadPoolExecutor(max_workers=1) as ex:
         port = ex.submit(run_world, ranks.distributed_cases, SIZE, (inp,),
-                         "cpu", None, 600.0)
+                         "cpu", None, WORLD_TIMEOUT_S)
         refs = _rehearsal_inputs(work, cfg)
         single = _single_side(inp)
         return inp, port.result(), single, (cfg, refs)

@@ -58,6 +58,9 @@ from pasture_tpu_torch.parallel.spawn import run_world
 
 POS, INT, CLS = "Position3D", "Intensity", "Classification"
 SIZE = 4
+# the world's ranks stop before the test's own time limit (conftest.py's
+# default), so a stuck rank fails with the ranks named
+WORLD_TIMEOUT_S = 150.0
 ND_SHAPE = {"hosts": 2, "points": 2}
 # (the ranks' case, the JAX case it must equal, the axis)
 ND_CASES = (("points", "points"), ("hosts", "hosts"),
@@ -162,7 +165,7 @@ def world(tmp_path_factory):
     inp = _inputs(tmp_path_factory.mktemp("parallel"))
     with ThreadPoolExecutor(max_workers=3) as ex:
         port = ex.submit(run_world, ranks.parallel_cases, SIZE, (inp,),
-                         "cpu", None, 600.0)
+                         "cpu", None, WORLD_TIMEOUT_S)
         # XLA compiles with the interpreter lock released: the 2-D mesh's
         # two programs compile beside the 1-D ones
         nd = {axis: ex.submit(_jax_nd, inp, axis)
