@@ -141,7 +141,10 @@ the CUDA toolkit.  It
    and K5 are held against their plain versions on rank 0's inputs there.
 
 The ``kernels`` phase also holds K6 against its plain version at the
-normals path's shape and at the point-to-plane ICP's.  ``--profile`` adds
+normals path's shape and at the point-to-plane ICP's, and K8 (the fused
+exact ICP iteration) at the odometry benchmark's keyframe shape (2 400 x
+2 400) and at 1 048 576 x 1 048 576, every bit of K8a's partials and of
+K8b's pose equal.  ``--profile`` adds
 a ``call_split`` line (the device operations of one K1, one K3 and one K5
 call) and a ``profile`` line per path (``path_segmentation``'s plane
 included): one step's GPU time by kernel name.
@@ -196,6 +199,7 @@ from pasture_tpu_torch.ops import (convert_batch_schema, decode_las_positions,
 from pasture_tpu_torch.ops import kernels
 from pasture_tpu_torch.ops.kernels import _build
 from pasture_tpu_torch.ops.kernels import compact_kernel as ck
+from pasture_tpu_torch.ops.kernels import icp_step_kernel as ist
 from pasture_tpu_torch.ops.kernels import fused_transform as ft
 from pasture_tpu_torch.ops.kernels import tile_sort_kernel as ts
 from pasture_tpu_torch.ops.kernels import voxel_reduce_kernel as vr
@@ -243,6 +247,14 @@ ICP_THETA = np.deg2rad(1.0)
 ICP_SHIFT = np.asarray([0.21, -0.13, 0.08], np.float32)
 ICP_MAX_DIST = 4.0
 ICP_NORMALS_K = 10   # the target normals of point-to-plane ICP (icp.py)
+# K8's rows: the odometry cell's keyframes (~2.4 k points a 1 m voxel map of
+# an HDL-64E scan) and a million-point pair; operations a pair of K8a, as the
+# float32 rate counts them: built with -fmad=false, its 3 differences, 3
+# squares and 2 sums are 8 separate instructions, each in a slot the rate
+# credits with an FMA's 2 operations (the compare and select issue on
+# another pipe and are not counted)
+ICP_STEP_SHAPES = (("", 2400), ("_1m", 1 << 20))
+ICP_STEP_PAIR_OPS = 16.0
 # registration pipeline: scans of one scene, their spacing along x, voxel
 REG_SCANS = 4
 REG_N = 1 << 16
@@ -2145,7 +2157,70 @@ def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
             nq * ((2.0 * w + 1) * 10 + 2.0 * k * k) + 20.0 * selected,
             path=path, counter="window_fit_moments")
         del sp, pp, got, want
+    icp_step_rows(rows, dev, flush)
     return rows
+
+
+def icp_step_inputs(n: int, dev):
+    """K8's inputs at ``n`` x ``n``: :func:`icp_pair`'s clouds (the source
+    a 1° turn and a shift off the target), every row valid, unit normals
+    drawn from a seed (K8a reads only the matched row's), the identity."""
+    src, tgt = (torch.from_numpy(a).to(dev) for a in icp_pair(n))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    nrm = torch.randn((n, 3), generator=gen, device=dev)
+    nrm = (nrm / torch.linalg.norm(nrm, dim=1, keepdim=True)).contiguous()
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    pose = torch.tensor([1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0, 0, 0, 0],
+                        dtype=torch.float32, device=dev)
+    return src, valid, tgt, valid, nrm, pose
+
+
+def icp_step_rows(rows: list, dev, flush) -> None:
+    """K8a and K8b against their plain versions at :data:`ICP_STEP_SHAPES`
+    (point-to-plane, ``ICP_MAX_DIST``): K8a's partials and the pose K8b
+    writes from them equal bit for bit, then timed."""
+    for suffix, n in ICP_STEP_SHAPES:
+        args = icp_step_inputs(n, dev)
+        max_d2 = ICP_MAX_DIST ** 2
+        got = ist.icp_correspond_accumulate(*args, max_d2, True)
+        want = ist.icp_correspond_accumulate_plain(*args, max_d2, True)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+            raise AssertionError(f"icp_correspond_accumulate{suffix} "
+                                 f"differs from its plain version by {err}")
+        big = n > 1 << 16
+        pose = args[5]
+        add_row(rows, "icp_correspond_accumulate" + suffix,
+                _CSRC + "icp_step.cu", "none (XLA's loop)", err,
+                gpu_ms(lambda: ist.icp_correspond_accumulate(
+                    *args, max_d2, True), flush, reps=3 if big else 10),
+                gpu_ms(lambda: ist.icp_correspond_accumulate_plain(
+                    *args, max_d2, True), flush, warmup=0 if big else 2,
+                    reps=1 if big else 5),
+                # the source rows and mask, the target rows, mask and
+                # normals read once, the partials written
+                13.0 * n + 25.0 * n + 8.0 * got.numel(),
+                ICP_STEP_PAIR_OPS * n * n, path="path_trajectory",
+                counter="icp_correspond_accumulate")
+        kpose, ppose = pose.clone(), pose.clone()
+        ist.icp_solve_update(got, kpose, 1e-6)
+        ist.icp_solve_update_plain(want, ppose, 1e-6)
+        torch.cuda.synchronize()
+        err = (kpose - ppose).abs().max().item()
+        if not torch.equal(kpose.view(torch.int32), ppose.view(torch.int32)):
+            raise AssertionError(f"icp_solve_update{suffix} differs from "
+                                 f"its plain version by {err}")
+        work = pose.clone()
+        add_row(rows, "icp_solve_update" + suffix, _CSRC + "icp_step.cu",
+                "none (XLA's loop)", err,
+                gpu_ms(lambda: ist.icp_solve_update(got, work, 1e-6), flush),
+                gpu_ms(lambda: ist.icp_solve_update_plain(
+                    want, work.clone(), 1e-6), flush, reps=5),
+                # the partials read, the pose and two scalars written
+                8.0 * got.numel() + 56.0, 30.0 * got.shape[1] + 400.0,
+                path="path_trajectory", counter="icp_solve_update")
+        del args, got, want
 
 
 def window_fit_inputs(pos: torch.Tensor, invalid: float = 0.02,
@@ -2749,11 +2824,11 @@ def phase_path_icp(dev: torch.device, rows: list, smi: str) -> tuple:
 def phase_path_registration(smi: str) -> None:
     """``RegistrationPipeline`` over four scans 0.1 m apart: keyframe
     spacing within 0.02 m of the truth, K5 launched by the voxel
-    downsampling and equal to its plain version on one scan's own inputs;
-    then the keyframes knocked off their odometry poses and brought back by
-    the pose graph, dense (``optimize()``) and CG: the cost falls by
-    1e-12 or more without rising, the poses return within 1e-6.  The whole
-    run timed."""
+    downsampling and equal to its plain version on one scan's own inputs,
+    K8 launched by the ICP; then the keyframes knocked off their odometry
+    poses and brought back by the pose graph, dense (``optimize()``) and
+    CG: the cost falls by 1e-12 or more without rising, the poses return
+    within 1e-6.  The whole run timed."""
     scans = registration_scans()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2761,7 +2836,8 @@ def phase_path_registration(smi: str) -> None:
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    expect_launched("path_registration", counts, "blockwise_compact")
+    expect_launched("path_registration", counts, "blockwise_compact",
+                    "icp_correspond_accumulate", "icp_solve_update")
     kept = held_compaction(scans[0])
     if len(pipe.keyframes) != REG_SCANS:
         raise AssertionError(f"path_registration: {len(pipe.keyframes)} "
@@ -2897,7 +2973,8 @@ def phase_path_trajectory(rows: list, smi: str) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0 - sum(draw_s)
     counts = kernels.launch_counts()
-    expect_launched("path_trajectory", counts, "blockwise_compact")
+    expect_launched("path_trajectory", counts, "blockwise_compact",
+                    "icp_correspond_accumulate", "icp_solve_update")
     gate = gate_trajectory(pipe, poses, TRAJ_SCANS)
     scan0 = trajectory_scan(0, poses)
     cols, keep, _ = capture_compaction(scan0)

@@ -7,6 +7,8 @@ from .fused_transform import (  # noqa: F401
     exact_local_base_coeffs, exact_local_max_leaf,
     fused_decode_transform_key, fused_voxel_head,
     fused_voxel_head_exact_local, fused_world_bounds)
+from .icp_step_kernel import (  # noqa: F401
+    icp_correspond_accumulate, icp_iterate, icp_solve_update)
 from .tile_sort_kernel import supports_tile_sort, tile_sort  # noqa: F401
 from .voxel_reduce_kernel import fused_sorted_voxel_reduce  # noqa: F401
 from .window_fit_kernel import (  # noqa: F401
@@ -14,10 +16,10 @@ from .window_fit_kernel import (  # noqa: F401
 
 
 def _kernel_modules():
-    from . import (compact_kernel, fused_transform, tile_sort_kernel,
-                   voxel_reduce_kernel, window_fit_kernel)
-    return (compact_kernel, fused_transform, tile_sort_kernel,
-            voxel_reduce_kernel, window_fit_kernel)
+    from . import (compact_kernel, fused_transform, icp_step_kernel,
+                   tile_sort_kernel, voxel_reduce_kernel, window_fit_kernel)
+    return (compact_kernel, fused_transform, icp_step_kernel,
+            tile_sort_kernel, voxel_reduce_kernel, window_fit_kernel)
 
 
 def launch_counts() -> dict:

@@ -24,7 +24,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["library", "build_all", "check", "stream", "SOURCES", "P", "I", "F"]
+__all__ = ["library", "build_all", "check", "stream", "SOURCES", "P", "I", "F",
+           "D"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -36,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p   # every pointer and the stream
 I = ctypes.c_int
 F = ctypes.c_float
+D = ctypes.c_double
 
 #: source stem -> {C function: argtypes}
 SOURCES: Dict[str, Dict[str, Sequence]] = {
@@ -74,6 +76,18 @@ SOURCES: Dict[str, Dict[str, Sequence]] = {
     "window_fit": {
         # sp, pp, n, k, w, cnt, tight, s, m6, stream
         "window_fit_launch": (P, P, I, I, I, P, P, P, P, P),
+    },
+    "icp_step": {
+        # src, src_valid, n, tgt, tgt_valid, nrm, m, pose, max_d2,
+        # point_to_plane, partial, parts, qpw, stream
+        "icp_correspond_launch": (P, P, I, P, P, P, I, P, F, I, P, I, I, P),
+        # partial, parts, pose, damping, rmse, nin, stream
+        "icp_solve_launch": (P, I, P, D, P, P, P),
+        # src, src_valid, n, tgt, tgt_valid, nrm, m, pose, max_d2,
+        # point_to_plane, damping, partial, parts, qpw, iterations, rmse,
+        # nin, stream
+        "icp_iterate_launch": (P, P, I, P, P, P, I, P, F, I, D, P, I, I, I,
+                               P, P, P),
     },
 }
 

@@ -12,6 +12,13 @@ Point-to-point and point-to-plane objectives; point-to-plane takes target
 normals from :mod:`pasture_tpu_torch.algorithms.normals` when none are
 given (on the Morton path the K6 window fit).  Correspondences beyond
 ``max_correspondence_distance`` get weight zero.
+
+On float32 tensors the exact path runs each iteration as K8
+(:mod:`pasture_tpu_torch.ops.kernels.icp_step_kernel`): the nearest
+neighbours by direct float32 differences and the normal equations in one
+step, the float64 solve and pose update in the other, the pose in one
+buffer between them; on CUDA these are the two kernels' launches, on the
+CPU their plain version.  float64 and the Morton path run the loop below.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 from .._device import fp32_matmul
 from ..algorithms.normals import (_morton_window_normals, _normals_device,
                                   _valid_extent, morton_order)
+from ..ops.kernels.icp_step_kernel import icp_iterate
 from .se3 import se3_exp, skew, transform_points
 
 __all__ = ["icp", "IcpResult", "nearest_neighbors", "morton_nearest_target"]
@@ -206,7 +214,10 @@ def icp(source: torch.Tensor, target: torch.Tensor,
     Point-to-plane composes with both: without ``target_normals`` the
     Morton path fits them with the K6 window fit
     (``_morton_window_normals(target, valid, 10, max(window, 32))``), the
-    exact path with exact 16-NN normals, once per call.
+    exact path with exact 16-NN normals, once per call.  On float32
+    tensors the exact path's iterations are K8's (on CUDA its launches and
+    nothing else); the result's rotation and translation then view one
+    pose buffer.
 
     Example — recover a known 5 cm shift:
 
@@ -242,7 +253,18 @@ def icp(source: torch.Tensor, target: torch.Tensor,
                     target_normals, _ = _normals_device(
                         target, target_valid, 16, tile)
         target_normals = target_normals.to(dtype)
-    else:
+
+    max_d2 = max_correspondence_distance ** 2
+    if correspondence == "exact" and dtype == torch.float32:
+        pose = torch.cat([rot.reshape(9), t])
+        rmse, nin = icp_iterate(
+            source.contiguous(), source_valid.to(torch.bool).contiguous(),
+            target.contiguous(), target_valid.to(torch.bool).contiguous(),
+            target_normals.contiguous() if point_to_plane else None, pose,
+            max_d2, point_to_plane, damping, iterations)
+        return IcpResult(pose[:9].view(3, 3), pose[9:], rmse, nin,
+                         iterations)
+    if not point_to_plane:
         target_normals = torch.zeros_like(target)
 
     if correspondence == "exact":
@@ -264,7 +286,6 @@ def icp(source: torch.Tensor, target: torch.Tensor,
                 window)
             return matched, d2, zero_n
 
-    max_d2 = max_correspondence_distance ** 2
     rmse = nin = torch.zeros((), dtype=dtype, device=dev)
     with fp32_matmul():             # the distance and normal-equation products
         for _ in range(iterations):

@@ -79,6 +79,36 @@ def test_icp_matches_jax(rng, correspondence, point_to_plane):
     np.testing.assert_allclose(got.translation.numpy(), t_true, atol=1e-2)
 
 
+@pytest.mark.parametrize("point_to_plane", [False, True])
+def test_icp_float32_exact_matches_jax(rng, point_to_plane):
+    """On float32 CPU tensors the exact path runs K8's plain version (what
+    the card's kernels equal bit for bit): its pose after 10 iterations
+    within 1e-6 of JAX's (f64) on the same float32 inputs, inliers equal,
+    the rmse at float32 rounding of JAX's, the shift recovered."""
+    target = _surface(rng, 1500).astype(np.float32)
+    t_true = np.array([0.1, -0.08, 0.05])
+    phi = np.array([0.0, 0.0, 0.02])
+    rot_true = so3_exp(_t(phi)).numpy()
+    source = ((target - t_true) @ rot_true).astype(np.float32)
+    kw = dict(max_correspondence_distance=2.0, iterations=10,
+              point_to_plane=point_to_plane, correspondence="exact",
+              window=16)
+    got = icp(_t(source), _t(target), **kw)
+    assert got.rotation.dtype == torch.float32
+    rot, t, rmse, nin = _jax_icp(jnp.asarray(source, dtype=jnp.float64),
+                                 jnp.asarray(target, dtype=jnp.float64),
+                                 **kw)
+    np.testing.assert_allclose(got.rotation.numpy(), np.asarray(rot),
+                               atol=1e-6)
+    np.testing.assert_allclose(got.translation.numpy(), np.asarray(t),
+                               atol=1e-6)
+    assert int(got.num_inliers) == int(nin)
+    # the moved points' float32 rounding: a few units of 2**-24 x |p|
+    np.testing.assert_allclose(float(got.rmse), float(rmse), rtol=0,
+                               atol=4 * 2.0 ** -24 * np.abs(target).max())
+    np.testing.assert_allclose(got.translation.numpy(), t_true, atol=1e-2)
+
+
 def test_icp_rejects_unknown_correspondence():
     with pytest.raises(ValueError, match="unknown correspondence"):
         icp(torch.zeros((8, 3)), torch.zeros((8, 3)),
