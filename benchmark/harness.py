@@ -112,6 +112,9 @@ class Run:
         self.device_busy_s: Optional[float] = None
         self.host: Dict = {}               # the window's host-side facts
         self.trace_window_s = 0.0
+        # a cell on several cards: one record a rank (world.py); the
+        # fields above are then rank 0's.  Empty on one card.
+        self.ranks: List[Dict] = []
 
     def total(self, key: str) -> float:
         return float(sum(u.get(key, 0) for u in self.units))

@@ -15,11 +15,16 @@ compared, beside its limit.  The same numbers end standard error.
 the one the configuration states, in the program's place and runs only the
 comparison, which has to come out false; no window is run.
 
+A cell whose ``chips`` is 1 runs in this process on ``cuda:0``; a cell on
+``n`` cards runs as ``n`` ranks, one process a card, in one NCCL world
+(``world.py``).
+
 Exits with a code other than 0, printing no result, when there is no CUDA
-device (or fewer than the cell asks for), when the program cannot be
-imported, or when JAX or the package the program was ported from is
-loaded once the window has closed (looked for after the comparison, in a
-control run too).
+device (or fewer than the cell asks for: 3), when the program cannot be
+imported, when JAX or the package the program was ported from is loaded
+once the window has closed (looked for after the comparison, in a control
+run too, and on every rank: 4), or when a rank raises, dies or outlives
+the run's limit (5).
 """
 
 from __future__ import annotations
@@ -77,9 +82,19 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count()} present", file=sys.stderr)
         return 3
     try:
-        out = harness.run_cell(bench, cell, args.seed, args.seconds,
-                               bool(args.trace), "cuda:0",
-                               control=bool(args.control))
+        if cell["chips"] == 1:
+            out = harness.run_cell(bench, cell, args.seed, args.seconds,
+                                   bool(args.trace), "cuda:0",
+                                   control=bool(args.control))
+        else:
+            import world
+            try:
+                out = world.run_ranks(bench, cell, args.seed, args.seconds,
+                                      bool(args.trace), cell["chips"],
+                                      "cuda", control=bool(args.control))
+            except world.RankFailed as e:
+                print(f"the run failed: {e}", file=sys.stderr)
+                return 5
     except harness.ForbiddenImport as e:
         print(f"forbidden modules loaded: {e.args[0]}", file=sys.stderr)
         return 4

@@ -1,0 +1,10 @@
+"""Percent of the traced window in which a rank's device ran nothing,
+averaged over the ranks (``run.ranks``)."""
+
+
+def read(run):
+    ranks = [r for r in run.ranks if r["device_busy_s"] is not None]
+    if not ranks:
+        return None
+    return sum(100.0 * (1.0 - r["device_busy_s"] / r["trace_window_s"])
+               for r in ranks) / len(ranks)
