@@ -12,6 +12,9 @@ axis's line through it, replicated over the other axes.  Replicated
 results (bounds, poses, merged voxels) are the same on every rank;
 per-shard counts come back as tensors of the axis's length, the same on
 every rank.  ``parallel.spawn`` starts a world of local processes.
+``SPANS`` / ``span_seconds()`` time the phases of a sharded fold (read,
+upload, voxelize, gather, merge; :mod:`.spans`) and ``POINTS_DECODED``
+counts the points a rank's ingest decoded.
 """
 
 from ._comm import collective_counts, reset_collective_counts  # noqa: F401
@@ -24,5 +27,6 @@ from .partition import morton_partition, MortonPartitionSpec  # noqa: F401
 from .distributed import distributed_icp, distributed_icp_partitioned, \
     distributed_pose_graph  # noqa: F401
 from .halo import halo_exchange, halo_exchange_local  # noqa: F401
-from .ingest import sharded_read_all  # noqa: F401
+from .ingest import POINTS_DECODED, sharded_read_all  # noqa: F401
+from .spans import SPANS, reset_spans, span_seconds  # noqa: F401
 from .multihost import initialize_multihost, global_mesh  # noqa: F401

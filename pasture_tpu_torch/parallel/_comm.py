@@ -201,7 +201,11 @@ def _rebuild(skeleton, leaves: List[torch.Tensor]):
 def all_gather_tree(tree, mesh) -> List:
     """Every rank's ``tree`` (nested dicts / tuples of tensors on the mesh
     device, the same structure and shapes on every rank) in rank order, in
-    one :func:`all_gather` of their packed bytes."""
+    one :func:`all_gather` of their packed bytes.  Every tensor goes whole,
+    at its full shape: a batch's rows past its count travel too (the
+    sharded merged voxelize hands over its stage-1 batch and aux at their
+    capacity rows: 1 155 004 928 bytes a rank on a 15 000 064-row shard,
+    77 a row)."""
     leaves: List[torch.Tensor] = []
     skeleton = _leaves(tree, leaves)
     flat = [t.reshape((1,) + tuple(t.shape)) for t in leaves]

@@ -3,24 +3,38 @@
 Port of pasture_tpu/parallel/ingest.py: files are read concurrently on
 host threads (mmap and vectorised decode release the interpreter lock),
 converted to one schema and concatenated; each rank then uploads its own
-rows to its device.  Every rank reads every file — simple, and each rank's
-shard is then exactly its rows of the concatenation.
+rows to its device.  The JAX package has every process read every file
+and keep its rows; here a rank reads the headers of every file for their
+point counts, then decodes only its own rows of the concatenation (a
+straddled file from its first row on, through the reader's
+``seek_point``; a file whose reader cannot seek, ``.pnts``, whole), so the
+ranks decode the files once between them.  The rows each rank holds are
+the same.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
+
+import torch
 
 from ..buffers.device import PointBatch
 from ..buffers.host import HostPointBuffer
 from ..io import open_reader
+from ..io.base import SeekToPoint
 from ..layout.dtypes import DevicePolicy
 from ..layout.schema import PointSchema
 from .mesh import POINTS_AXIS, Mesh
+from .spans import span
 
-__all__ = ["sharded_read_all", "read_files_parallel"]
+__all__ = ["sharded_read_all", "read_files_parallel", "POINTS_DECODED"]
+
+#: points decoded on this rank's host, cumulative: what each call of
+#: :func:`sharded_read_all` read of its files
+POINTS_DECODED = {"sharded_read_all": 0}
+_HOST = torch.device("cpu")
 
 
 def read_files_parallel(paths: Sequence[Union[str, Path]],
@@ -46,20 +60,86 @@ def read_files_parallel(paths: Sequence[Union[str, Path]],
     return HostPointBuffer.concat(buffers)
 
 
+def _point_counts(paths, schema):
+    """Each file's point count from its header, and the schema (the first
+    file's default where none is given)."""
+    counts: List[int] = []
+    for path in paths:
+        with open_reader(path) as r:
+            if schema is None:
+                schema = r.get_default_point_schema()
+            counts.append(int(r.get_metadata().number_of_points()))
+    return counts, schema
+
+
+def _read_rows(path, lo: int, hi: int, schema: PointSchema
+               ) -> Tuple[HostPointBuffer, int]:
+    """Rows ``[lo, hi)`` of one file and the points decoded for them: from
+    ``lo`` on where the reader can seek, else the whole file, sliced."""
+    with open_reader(path) as r:
+        if isinstance(r, SeekToPoint):
+            r.seek_point(lo)
+            buf = r.read(hi - lo, schema=schema)
+            return buf, len(buf)
+        buf = r.read_all(schema=schema)
+        return buf.slice(lo, hi), len(buf)
+
+
 def sharded_read_all(paths: Sequence[Union[str, Path]], mesh: Mesh,
                      schema: Optional[PointSchema] = None,
                      axis: str = POINTS_AXIS,
                      policy: DevicePolicy = DevicePolicy.NARROW,
-                     max_workers: int = 8) -> PointBatch:
-    """Files -> host-parallel read -> this rank's shard over ``axis`` on
-    the mesh device: exactly :func:`~.mesh.shard_batch`'s rows of the
-    concatenated batch (capacity padded to a multiple of the axis's size),
-    uploaded alone."""
-    host = read_files_parallel(paths, schema, max_workers)
-    line = mesh.along(axis)
-    n = line.size
-    per = max((len(host) + n - 1) // n, 1)
-    start = min(line.rank * per, len(host))
-    rows = host.slice(start, min(start + per, len(host)))
-    return PointBatch.from_host(rows, policy=policy, capacity=per,
-                                device=mesh.device)
+                     max_workers: int = 8,
+                     capacity_multiple: int = 1) -> PointBatch:
+    """Files -> this rank's shard over ``axis`` on the mesh device:
+    exactly :func:`~.mesh.shard_batch`'s rows of the concatenated files
+    (``per = ceil(points / ranks)`` rows a rank, capacity ``per``),
+    uploaded alone.  The rank reads every file's header, then decodes
+    only the files that hold its rows, on host threads, and of those only
+    its rows (:data:`POINTS_DECODED` counts what it decodes).  Without
+    ``schema`` the first file's default schema is used; every file
+    converts into it.
+
+    ``capacity_multiple`` pads the shard's capacity up to a multiple of it,
+    the padding invalid (past the count), so that tiles of that many rows
+    divide a shard (``voxel_downsample(..., sort_tiles=capacity //
+    rows)``); the rows held are the same."""
+    paths = list(paths)
+    if not paths:
+        raise ValueError("no input files")
+    if capacity_multiple < 1:
+        raise ValueError(f"capacity_multiple={capacity_multiple} < 1")
+    with span("read", _HOST):
+        counts, schema = _point_counts(paths, schema)
+        line = mesh.along(axis)
+        total = sum(counts)
+        per = max((total + line.size - 1) // line.size, 1)
+        start = min(line.rank * per, total)
+        stop = min(start + per, total)
+        pieces, at = [], 0
+        for i, n in enumerate(counts):
+            lo, hi = max(start - at, 0), min(stop - at, n)
+            if lo < hi:
+                pieces.append((i, lo, hi))
+            at += n
+        bufs = []
+        if pieces:
+            with ThreadPoolExecutor(
+                    max_workers=min(max_workers, len(pieces))) as ex:
+                futs = [ex.submit(_read_rows, paths[i], lo, hi, schema)
+                        for i, lo, hi in pieces]
+                for f in futs:
+                    buf, decoded = f.result()
+                    bufs.append(buf)
+                    POINTS_DECODED["sharded_read_all"] += decoded
+        if not bufs:
+            rows = HostPointBuffer.empty(schema, 0)
+        elif len(bufs) == 1:
+            rows = bufs[0]
+        else:
+            rows = HostPointBuffer.concat(bufs)
+    m = int(capacity_multiple)
+    with span("upload", mesh.device):
+        return PointBatch.from_host(rows, policy=policy,
+                                    capacity=(per + m - 1) // m * m,
+                                    device=mesh.device)

@@ -9,10 +9,11 @@ sharded over that axis and replicated over the others.
 * ``sharded_voxel_downsample`` — a per-rank voxelize against the global
   grid origin (the ranks' ``min``), so a rank's shard takes the tiled and
   quantized fast paths (``tile_sort`` + ``fused_sorted_voxel_reduce``);
-* ``sharded_voxel_downsample_merged`` — the same ``with_aux``, the ranks'
-  voxel statistics all-gathered, and on every rank the exact two-stage
-  merge (:func:`~pasture_tpu_torch.ops.merge_voxel_batches`): the result
-  is replicated and equals the one-shot single-device voxelization for the
+* ``sharded_voxel_downsample_merged`` — the same ``with_aux``, every
+  rank's stage-1 batch and merge statistics all-gathered at their
+  capacity rows, and on every rank the exact two-stage merge
+  (:func:`~pasture_tpu_torch.ops.merge_voxel_batches`): the result is
+  replicated and equals the one-shot single-device voxelization for the
   mean / max policies, and for mode too with ``mode_runs=True``;
 * ``distributed_normals`` — Morton partition, then each rank's sorted
   block padded with its ring neighbours' boundary rows, fitted by the
@@ -33,6 +34,7 @@ from . import _comm
 from .halo import halo_exchange_local
 from .mesh import POINTS_AXIS, Mesh
 from .partition import morton_partition
+from .spans import span
 
 __all__ = ["sharded_bounds", "sharded_voxel_downsample",
            "sharded_voxel_downsample_merged", "distributed_normals",
@@ -89,9 +91,10 @@ def sharded_voxel_downsample(batch: PointBatch, mesh: Mesh, leaf_size,
     local = PointBatch(dict(batch.data), count.to(torch.int32),
                        batch.schema, dict(batch.meta), batch.policy)
     gmin, _ = _global_bounds(pos, local.valid_mask(), line)
-    out = voxel_downsample(local, leaf_size, bounds=(gmin, None),
-                           semantics=semantics, with_aux=with_aux,
-                           **voxel_kwargs)
+    with span("voxelize", batch.device):
+        out = voxel_downsample(local, leaf_size, bounds=(gmin, None),
+                               semantics=semantics, with_aux=with_aux,
+                               **voxel_kwargs)
     aux = None
     if with_aux:
         out, aux = out
@@ -111,24 +114,33 @@ def sharded_voxel_downsample_merged(batch: PointBatch, mesh: Mesh,
     """Distributed voxelize and exact global merge in one call.
 
     :func:`sharded_voxel_downsample` ``with_aux``, then every rank gathers
-    the voxels and merge statistics of its ``axis`` line (one all-gather of
-    their packed bytes: voxel statistics, bounded by the voxel count, never
-    raw points) and merges them in shard order with
-    :func:`~pasture_tpu_torch.ops.merge_voxel_batches`.  Returns ``(batch,
-    aux)``, replicated: the centroid values equal the one-shot
-    single-device voxelization for mean / max (mode: exact with
-    ``mode_runs=True`` in ``voxel_kwargs``, the weighted-vote envelope
-    otherwise)."""
+    the stage-1 batches and merge statistics of its ``axis`` line (one
+    all-gather of their packed bytes) and merges them in shard order with
+    :func:`~pasture_tpu_torch.ops.merge_voxel_batches`.  What is gathered
+    is each rank's whole stage-1 batch and aux at its capacity rows (the
+    shard's point capacity, ``voxel_downsample`` keeping it), not trimmed
+    to the voxel count: with ``mode_runs`` on a 15 000 064-row shard of
+    POSITION_3D, INTENSITY and CLASSIFICATION that is 77 bytes a capacity
+    row, 1 155 004 928 bytes a rank, where the shard holds ~5.6 M voxels
+    (``collective_counts()["all_gather"]`` read 1 155 004 944 bytes a fold
+    on each of four H100s, the 16 more being the voxel counts' gather and
+    the run table's ``num_runs``, each padded to 8).  Returns ``(batch, aux)``,
+    replicated: the centroid values equal the one-shot single-device
+    voxelization for mean / max (mode: exact with ``mode_runs=True`` in
+    ``voxel_kwargs``, the weighted-vote envelope otherwise)."""
     from ..ops.voxel_merge import merge_voxel_batches
 
     vox, counts, aux = sharded_voxel_downsample(
         batch, mesh, leaf_size, axis=axis, semantics=semantics,
         per_shard_counts=per_shard_counts, with_aux=True, **voxel_kwargs)
-    parts = _comm.all_gather_tree((vox.data, aux), mesh.along(axis))
-    return merge_voxel_batches(
-        [(PointBatch(data, counts[r].to(torch.int32), vox.schema, vox.meta,
-                     vox.policy), a) for r, (data, a) in enumerate(parts)],
-        policies=voxel_kwargs.get("policies"))
+    with span("gather", batch.device):
+        parts = _comm.all_gather_tree((vox.data, aux), mesh.along(axis))
+    with span("merge", batch.device):
+        return merge_voxel_batches(
+            [(PointBatch(data, counts[r].to(torch.int32), vox.schema,
+                         vox.meta, vox.policy), a)
+             for r, (data, a) in enumerate(parts)],
+            policies=voxel_kwargs.get("policies"))
 
 
 def distributed_normals(batch: PointBatch, mesh: Mesh, k: int,

@@ -28,7 +28,10 @@ of the 1-D case); the three-axis mesh over ``"points"`` must give the 2-D
 mesh's results.  The merged voxelize on each equals the single device as
 on the 1-D meshes."""
 
+import importlib.util
+import json
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -68,6 +71,16 @@ ND_CASES = (("points", "points"), ("hosts", "hosts"),
 N, CAP = 1000, 1024
 HALO = 16
 LEAF = 1.0
+BENCH = Path(__file__).resolve().parents[1] / "benchmark"
+# a 2 x 2 block of 40 m x 50 m sub-tiles at 2 points a square metre: the
+# sheet fold's shape at a size the CPU holds, one sub-tile a rank
+SHEET = ((136000, 455000), (136040, 455000), (136000, 455050),
+         (136040, 455050))
+# files of unequal sizes (a rank's rows straddle three of them), more
+# ranks than files (one rank's rows straddle both, one holds none), and
+# .pnts files, whose reader cannot seek (a rank decodes each file it needs
+# whole)
+SIZES = {"uneven": (700, 130, 455), "few": (3, 2), "pnts": (5, 3)}
 
 
 def _pad(cols, cap=CAP):
@@ -96,10 +109,58 @@ def _inputs(workdir) -> dict:
             POS: np.round(rng.uniform(0, 50, (250, 3)), 3),
             INT: rng.integers(0, 4096, 250).astype(np.uint16)}), path)
         files.append(str(path))
+    sized = {}
+    for name, sizes in SIZES.items():
+        sized[name] = []
+        for i, n in enumerate(sizes):
+            ext = "pnts" if name == "pnts" else "las"
+            path = workdir / f"{name}{i}.{ext}"
+            write_all(HostPointBuffer.from_columns(schema, {
+                POS: np.round(rng.uniform(0, 50, (n, 3)), 3),
+                INT: rng.integers(0, 4096, n).astype(np.uint16)}), path)
+            sized[name].append(str(path))
+    sheet, block = _sheet(workdir)
     return {"a": _pad(a), "a_count": N, "b": _pad(b), "b_count": 700,
             "ordered": _pad({k: v[order] for k, v in a.items()}),
             "vox": _pad(vox), "vox_count": N, "merge": _pad(merge),
-            "merge_count": N, "halo": HALO, "leaf": LEAF, "files": files}
+            "merge_count": N, "halo": HALO, "leaf": LEAF, "files": files,
+            **sized, "sheet": sheet, "sheet_block": block}
+
+
+def _bench(rel: str):
+    """A module of the benchmark's folder by its path (``reference/
+    voxel_map``): the plain reference, the scene and the LAS writer import
+    nothing of the program."""
+    spec = importlib.util.spec_from_file_location(
+        "bench_" + rel.replace("/", "_"), BENCH / f"{rel}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sheet(workdir):
+    """The block's sub-tiles made by the benchmark's scene generator and
+    written by its LAS writer, each with its south-west corner as its LAS
+    offset; returns their paths and the block's ``(local, intensity,
+    classification)`` in the frame of the first corner, as numpy."""
+    cfg = json.loads((BENCH / "configs" / "ahn4-block-2x2.json")
+                     .read_text())
+    cfg.update(size_m=[40, 50], points_per_m2=2)
+    ahn4, lasfile = _bench("scenes/ahn4"), _bench("lasfile")
+    paths, parts = [], []
+    for i, (x, y) in enumerate(SHEET):
+        t = ahn4.make_tile(dict(cfg, offset=[float(x), float(y), 0.0]),
+                           1000 + i, "cpu")
+        path = workdir / f"sub{i}.las"
+        lasfile.write_las(path, t["local"].numpy(), t["intensity"].numpy(),
+                          t["classification"].numpy(), scale=cfg["scale"],
+                          offset=[float(x), float(y), 0.0])
+        paths.append(str(path))
+        shift = np.asarray([(x - SHEET[0][0]) * 1000,
+                            (y - SHEET[0][1]) * 1000, 0], np.int32)
+        parts.append((t["local"].numpy() + shift, t["intensity"].numpy(),
+                      t["classification"].numpy()))
+    return paths, tuple(np.concatenate(c) for c in zip(*parts))
 
 
 def _jbatch(cols, count, mesh, axis="points"):
@@ -553,3 +614,112 @@ def test_nd_interop_carries_shards(world, axis):
         np.testing.assert_array_equal(b, np.split(col, 2)[c])
     np.testing.assert_array_equal(
         interop.shards_to_reference(blocks, ND_SHAPE, axis), col)
+
+
+def _rows(paths):
+    """The concatenated files, each rank's ``[lo, hi)`` of it and the
+    shard capacity: today's rows, as every rank read them before."""
+    host = HostPointBuffer.concat([read_all(p) for p in paths])
+    total = len(host)
+    per = max(-(-total // SIZE), 1)
+    return host, per, [(min(r * per, total), min(r * per + per, total))
+                       for r in range(SIZE)]
+
+
+@pytest.mark.parametrize("case", list(SIZES))
+def test_rank_local_read_gives_the_same_rows(world, case):
+    inp, port, _ = world
+    host, per, spans = _rows(inp[case])
+    edges = np.cumsum(SIZES[case])[:-1]
+    # a rank's rows straddle a file's end; with more ranks than files one
+    # rank holds no row
+    assert any(lo < e < hi for lo, hi in spans for e in edges)
+    assert case != "few" or any(lo == hi for lo, hi in spans)
+    for r, res in enumerate(port):
+        got = res["ingest"][case]
+        lo, hi = spans[r]
+        assert got["capacity"] == per and got["count"] == hi - lo
+        for name in host.schema.names:
+            col = got["data"][name]
+            np.testing.assert_array_equal(
+                col[:hi - lo], host.columns[name][lo:hi].astype(col.dtype))
+            assert not col[hi - lo:].any()
+
+
+@pytest.mark.parametrize("case", list(SIZES) + ["sheet"])
+def test_rank_local_read_decodes_only_its_rows(world, case):
+    inp, port, _ = world
+    _, _, spans = _rows(inp[case])
+    if case == "sheet":
+        # one sub-tile a rank: a rank's rows are its own file's points
+        assert spans == [(r * 4000, r * 4000 + 4000) for r in range(SIZE)]
+    for r, res in enumerate(port):
+        lo, hi = spans[r]
+        want = hi - lo
+        if case == "pnts":
+            # every file that holds one of the rank's rows, whole
+            ends = np.cumsum(SIZES[case])
+            want = sum(n for n, e in zip(SIZES[case], ends)
+                       if lo < e and hi > e - n)
+        assert res["ingest"][case]["decoded"] == want
+
+
+def test_capacity_multiple_pads_with_invalid_rows(world):
+    inp, port, _ = world
+    host, per, spans = _rows(inp["uneven"])
+    assert per % 512
+    for r, res in enumerate(port):
+        got, plain = res["ingest"]["padded"], res["ingest"]["uneven"]
+        lo, hi = spans[r]
+        assert got["capacity"] == -(-per // 512) * 512
+        assert got["count"] == plain["count"] == hi - lo
+        for name, col in got["data"].items():
+            np.testing.assert_array_equal(col[:per], plain["data"][name])
+            assert not col[per:].any()
+
+
+def test_sheet_fold_equals_plain_reference(world):
+    """The sharded fold of the 2 x 2 block on four ranks against the plain
+    reference's map of the whole block (``benchmark/reference``), under
+    the limits of the benchmark's LAS fold; every rank holds the same
+    map."""
+    inp, port, _ = world
+    voxel_map, compare = _bench("reference/voxel_map"), \
+        _bench("reference/compare")
+    cfg = json.loads((BENCH / "configs" / "ahn4-block-2x2.json")
+                     .read_text())
+    limits = json.loads((BENCH / "workloads" / "las-fold.json")
+                        .read_text())["limits"]
+    local, inten, cls = (torch.from_numpy(a) for a in inp["sheet_block"])
+    ref = voxel_map.fold_map(local, inten, cls, cfg["scale"],
+                             [float(SHEET[0][0]), float(SHEET[0][1]), 0.0],
+                             0.5, 20)
+    got = port[0]["ingest"]["sheet"]
+    hi, lo = (torch.from_numpy(k) for k in got["keys"])
+    key = voxel_map.linear_code(voxel_map.cells_of_morton60(hi, lo))
+    order = torch.argsort(key)
+    mine = {"key": key[order],
+            "counts": torch.from_numpy(got["counts"]).long()[order],
+            "centroid": torch.from_numpy(got["data"][POS]).double()[order],
+            "intensity": torch.from_numpy(
+                got["data"][INT].astype(np.int64))[order],
+            "classification": torch.from_numpy(
+                got["data"][CLS].astype(np.int64))[order]}
+    checks, failed = compare.worst([compare.keyed(mine, ref)], limits)
+    assert failed == 0, checks
+    assert int(mine["counts"].sum()) == local.shape[0]
+    for res in port[1:]:
+        other = res["ingest"]["sheet"]
+        for name, col in got["data"].items():
+            np.testing.assert_array_equal(other["data"][name], col)
+        for a, b in zip(other["keys"], got["keys"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_span_seconds_has_five_phases(world):
+    _, port, _ = world
+    for res in port:
+        spans = res["ingest"]["sheet"]["spans"]
+        assert list(spans) == ["read", "upload", "voxelize", "gather",
+                               "merge"]
+        assert all(v >= 0 for v in spans.values())

@@ -19,11 +19,12 @@ from pasture_tpu_torch.layout import attributes as att
 from pasture_tpu_torch.layout.dtypes import DevicePolicy
 from pasture_tpu_torch.layout.schema import PointSchema
 from pasture_tpu_torch.parallel import (
-    collective_counts, distributed_icp, distributed_icp_partitioned,
-    distributed_normals, distributed_pose_graph, global_mesh, halo_exchange,
-    make_mesh, morton_partition, reset_collective_counts, shard_batch,
-    sharded_bounds, sharded_read_all, sharded_voxel_downsample,
-    sharded_voxel_downsample_merged)
+    POINTS_DECODED, collective_counts, distributed_icp,
+    distributed_icp_partitioned, distributed_normals, distributed_pose_graph,
+    global_mesh, halo_exchange, make_mesh, morton_partition,
+    reset_collective_counts, reset_spans, shard_batch, sharded_bounds,
+    sharded_read_all, sharded_voxel_downsample,
+    sharded_voxel_downsample_merged, span_seconds)
 from pasture_tpu_torch import interop
 
 POS = att.POSITION_3D.name
@@ -117,6 +118,44 @@ def parallel_cases(rank: int, size: int, inp: dict) -> dict:
                    "device": str(read.device)}
     res["collectives"] = collective_counts()
     res["nd"] = nd_cases(inp, full)
+    res["ingest"] = ingest_cases(inp, m4)
+    return res
+
+
+def _read(paths, mesh, **kw) -> dict:
+    """``sharded_read_all`` with the points it decoded on this rank."""
+    before = POINTS_DECODED["sharded_read_all"]
+    b = sharded_read_all(paths, mesh, **kw)
+    return {"data": numpy_tree(b.data), "count": int(b.count),
+            "capacity": b.capacity,
+            "decoded": POINTS_DECODED["sharded_read_all"] - before}
+
+
+def ingest_cases(inp: dict, mesh) -> dict:
+    """The rank-local ingest of tests/test_torch_parallel.py (files of
+    unequal sizes, more ranks than files, a padded capacity) and the
+    sheet fold: a 2 x 2 block of LAS sub-tiles, one a rank, read and
+    folded as ``benchmark/drivers/sheet_fold.py`` folds it, with the
+    spans of the fold."""
+    res = {name: _read(inp[name], mesh) for name in ("uneven", "few",
+                                                      "pnts")}
+    res["padded"] = _read(inp["uneven"], mesh, capacity_multiple=512)
+    schema = PointSchema.from_attributes(
+        [att.POSITION_3D, att.INTENSITY, att.CLASSIFICATION])
+    reset_spans()
+    before = POINTS_DECODED["sharded_read_all"]
+    batch = sharded_read_all(inp["sheet"], mesh, schema=schema,
+                             capacity_multiple=512)
+    decoded = POINTS_DECODED["sharded_read_all"] - before
+    merged, aux = sharded_voxel_downsample_merged(
+        batch, mesh, 0.5, grid_bits=20, mode_runs=True,
+        sort_tiles=batch.capacity // 512)
+    nv = int(merged.count)
+    res["sheet"] = {"keys": [k[:nv].numpy() for k in aux["keys"]],
+                    "counts": aux["counts"][:nv].numpy(),
+                    "data": {n: v[:nv].numpy()
+                             for n, v in merged.data.items()},
+                    "decoded": decoded, "spans": span_seconds()}
     return res
 
 
