@@ -124,8 +124,10 @@ the CUDA toolkit.  It
    (path B (ii), K4 and K3'q once a shard), the merged voxelize with run
    tables (K5), the Morton partition and halo exchange, halo-windowed
    normals (K6), replicated and partitioned ICP, the dense and CG pose
-   graph, ``sharded_read_all`` of four LAS files and the pipeline over the
-   trajectory's first scans.  Each step is gated against the single-device
+   graph, ``sharded_read_all`` of four LAS files (into their default
+   schema, whose flags take the host path, and into positions, intensity
+   and class, the record path: K9 on the card, which must launch) and the
+   pipeline over the trajectory's first scans.  Each step is gated against the single-device
    path (``gate_distributed``), world (b) against world (a)
    (``compare_worlds``), and in world (b) the card's partition against the
    same ranks' partition on the CPU bit for bit; then seconds per step,
@@ -144,7 +146,9 @@ The ``kernels`` phase also holds K6 against its plain version at the
 normals path's shape and at the point-to-plane ICP's, and K8 (the fused
 exact ICP iteration) at the odometry benchmark's keyframe shape (2 400 x
 2 400) and at 1 048 576 x 1 048 576, every bit of K8a's partials and of
-K8b's pose equal.  ``--profile`` adds
+K8b's pose equal, and K9 (the LAS record decode) at one staging chunk of
+the sheet's format-6 records (1 118 481 rows) into float32 positions,
+int32 intensity and uint8 class, every bit equal.  ``--profile`` adds
 a ``call_split`` line (the device operations of one K1, one K3 and one K5
 call) and a ``profile`` line per path (``path_segmentation``'s plane
 included): one step's GPU time by kernel name.
@@ -200,6 +204,7 @@ from pasture_tpu_torch.ops import kernels
 from pasture_tpu_torch.ops.kernels import _build
 from pasture_tpu_torch.ops.kernels import compact_kernel as ck
 from pasture_tpu_torch.ops.kernels import icp_step_kernel as ist
+from pasture_tpu_torch.ops.kernels import las_decode_kernel as k9
 from pasture_tpu_torch.ops.kernels import fused_transform as ft
 from pasture_tpu_torch.ops.kernels import tile_sort_kernel as ts
 from pasture_tpu_torch.ops.kernels import voxel_reduce_kernel as vr
@@ -255,6 +260,13 @@ ICP_NORMALS_K = 10   # the target normals of point-to-plane ICP (icp.py)
 # another pipe and are not counted)
 ICP_STEP_SHAPES = (("", 2400), ("_1m", 1 << 20))
 ICP_STEP_PAIR_OPS = 16.0
+# K9's row: one staging chunk of the sheet cell's records (LAS format 6,
+# 30 bytes: int32 locals at 0, intensity at 12, class at 16), its RD New
+# scale and offset
+K9_RECORD = 30
+K9_ROWS = (32 << 20) // K9_RECORD
+K9_FIELDS = ((12, 2, torch.int32), (16, 1, torch.uint8))
+K9_SCALE, K9_OFFSET = (0.001, 0.001, 0.001), (136000.0, 455000.0, -3.5)
 # registration pipeline: scans of one scene, their spacing along x, voxel
 REG_SCANS = 4
 REG_N = 1 << 16
@@ -2158,6 +2170,7 @@ def phase_kernels(batch: PointBatch, affine, tiles: int) -> list:
             path=path, counter="window_fit_moments")
         del sp, pp, got, want
     icp_step_rows(rows, dev, flush)
+    las_decode_row(rows, dev, flush)
     return rows
 
 
@@ -2221,6 +2234,51 @@ def icp_step_rows(rows: list, dev, flush) -> None:
                 8.0 * got.numel() + 56.0, 30.0 * got.shape[1] + 400.0,
                 path="path_trajectory", counter="icp_solve_update")
         del args, got, want
+
+
+def las_decode_row(rows: list, dev, flush) -> None:
+    """K9 against its plain version on :data:`K9_ROWS` random format-6
+    records (every int32 local), bit for bit; the wrapper launches once;
+    then timed.  Its launches are read from ``path_distributed``'s record
+    read."""
+    n = K9_ROWS
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rec = torch.randint(0, 256, (-(-n * K9_RECORD // 16) * 16,),
+                        dtype=torch.uint8, device=dev, generator=gen)
+
+    def outputs():
+        return (torch.zeros((n, 3), device=dev),
+                [(off, comp, torch.zeros(n, dtype=d, device=dev))
+                 for off, comp, d in K9_FIELDS])
+    kpos, kfields = outputs()
+    ppos, pfields = outputs()
+    args = (n, K9_RECORD, 0, K9_SCALE, K9_OFFSET, 0)
+    kernels.reset_launch_counts()
+    k9.las_records_decode(rec, *args, kpos, kfields)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()["las_records_decode"]
+    if launched != 1:
+        raise AssertionError(f"las_records_decode launched {launched} times")
+    k9.las_records_decode_plain(rec, *args, ppos, pfields)
+    torch.cuda.synchronize()
+    err = (kpos - ppos).abs().max().item()
+    if not torch.equal(kpos.view(torch.int32), ppos.view(torch.int32)) \
+            or not all(torch.equal(k[2], p[2])
+                       for k, p in zip(kfields, pfields)):
+        raise AssertionError(f"las_records_decode differs from its plain "
+                             f"version (positions by {err})")
+    add_row(rows, "las_records_decode", _CSRC + "las_decode.cu",
+            "none (the host's converting read)", err,
+            gpu_ms(lambda: k9.las_records_decode(rec, *args, kpos, kfields),
+                   flush),
+            gpu_ms(lambda: k9.las_records_decode_plain(rec, *args, ppos,
+                                                       pfields),
+                   flush, reps=5),
+            # each record read once, each output element written once
+            # (30 + 12 + 4 + 1 B a row); bound by bytes alone
+            k9.record_bytes(n, K9_RECORD, kpos, kfields), 0.0,
+            path="path_distributed", counter="las_records_decode")
+    del rec, kpos, kfields, ppos, pfields
 
 
 def window_fit_inputs(pos: torch.Tensor, invalid: float = 0.02,
@@ -3889,7 +3947,8 @@ MESH2D_AXES = ("hosts", "points")   # world (b)'s four ranks as a 2-D mesh
 MESH2D_TWIN_M = 1e-9          # the pose graph's hosts twins (float atomics)
 #: the kernel counters a step's launches are read from
 DIST_COUNTERS = ("tile_sort", "fused_sorted_voxel_reduce_quantized",
-                 "blockwise_compact", "window_fit_moments")
+                 "blockwise_compact", "window_fit_moments",
+                 "las_records_decode")
 
 
 def dist_config(**overrides) -> dict:
@@ -4227,6 +4286,26 @@ def distributed_world(rank: int, size: int, work: str, cfg: dict,
             want.columns[k].astype(_np_of(got.data[k]).dtype))
             for k in want.columns))}
     del got, host
+    # the same files into positions, intensity and class: the record path
+    # (K9 on the card), every row of it, equal to the host's decode and
+    # zero past the count
+    on_card = parallel.POINTS_DECODED["on_card"]
+    got = step("sharded_read_all_records",
+               lambda: parallel.sharded_read_all(paths, mesh,
+                                                 schema=SURVEY_SCHEMA))
+    on_card = parallel.POINTS_DECODED["on_card"] - on_card
+    host = HostPointBuffer.concat([read_all(p, schema=SURVEY_SCHEMA)
+                                   for p in paths])
+    want = host.slice(min(rank * per, len(host)),
+                      min((rank + 1) * per, len(host)))
+    nr = int(got.count.item())
+    out["read_records"] = {
+        "rows": nr, "on_card": on_card, "device": str(got.device),
+        "equal": nr == len(want) and all(
+            np.array_equal(_np_of(got.data[k][:nr]),
+                           want.columns[k].astype(_np_of(got.data[k]).dtype))
+            and not _np_of(got.data[k][nr:]).any() for k in want.columns)}
+    del got, host
 
     scans = np.load(work / "scans.npy", mmap_mode="r")
 
@@ -4494,6 +4573,12 @@ def gate_distributed(world: list, refs: dict, cfg: dict) -> dict:
     if not all(r["read"]["equal"] and r["read"]["device"] ==
                str(resolve_device(cfg["device"])) for r in world):
         fail("sharded_read_all", [r["read"] for r in world])
+    if not all(r["read_records"]["equal"]
+               and r["read_records"]["on_card"] == r["read_records"]["rows"]
+               > 0 and r["read_records"]["device"]
+               == str(resolve_device(cfg["device"])) for r in world):
+        fail("sharded_read_all (record path)",
+             [r["read_records"] for r in world])
     rots, trans = world[0]["pipeline"]
     g["pipeline"] = pose_errors(rots, trans, refs["poses"])
     g["pipeline_vs_single_m"] = _max_diff(trans, refs["pipeline"][1])
@@ -4505,6 +4590,13 @@ def gate_distributed(world: list, refs: dict, cfg: dict) -> dict:
     if cuda:
         for r in world:
             gate_launches(r["launches"], fail)
+            la = r["launches"]
+            if la["sharded_read_all"]["las_records_decode"] != 0 \
+                    or la["sharded_read_all_records"][
+                        "las_records_decode"] < 1:
+                fail("sharded_read_all", "K9 launched on the host path, or "
+                     f"not on the record path: {la['sharded_read_all']}, "
+                     f"{la['sharded_read_all_records']}")
         if size > 1 and not all(r["cross_cpu"]["equal"] for r in world):
             fail("morton_partition", "the card's partition differs from "
                  "the CPU's")

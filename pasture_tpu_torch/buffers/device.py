@@ -20,14 +20,14 @@ round trips; reductions mask out the tail.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..layout.attributes import PointAttribute
-from ..layout.dtypes import DevicePolicy, carrier_np_dtype
+from ..layout.dtypes import DevicePolicy, PointDtype, carrier_np_dtype
 from ..layout.schema import PointSchema
 from .host import HostPointBuffer
 
@@ -42,6 +42,24 @@ def _pad_rows(t: torch.Tensor, extra: int) -> torch.Tensor:
     if extra == 0:
         return t
     return torch.cat([t, t.new_zeros((extra,) + tuple(t.shape[1:]))], dim=0)
+
+
+def column_carrier(d: PointDtype, policy: DevicePolicy
+                   ) -> Tuple[np.dtype, bool]:
+    """The carrier numpy dtype of a column of ``d`` on the device under
+    ``policy``, as :meth:`PointBatch.from_host` makes it, and whether that
+    carrier holds ``d``'s components unchanged: ``d``'s own dtype, or a
+    wider signed integer that zero-extends an unsigned one (u16 in int32,
+    u32 in int64).  A decode that writes a batch's columns elsewhere (the
+    card's record path of ``parallel.sharded_read_all``) takes its dtypes
+    from here."""
+    logical = policy.np_dtype(d)
+    carrier = carrier_np_dtype(logical)
+    wire = d.np_component_dtype
+    unchanged = logical == wire and (carrier == wire or (
+        wire.kind == "u" and carrier.kind == "i"
+        and carrier.itemsize > wire.itemsize))
+    return carrier, unchanged
 
 
 @dataclasses.dataclass

@@ -277,6 +277,66 @@ class LasReader(PointReader, SeekToPoint):
         return ({m.name: rec[m.name]
                  for m in self._exact_schema.members}, False)
 
+    # ---- raw record ranges ----------------------------------------------------
+    @property
+    def record_size(self) -> int:
+        """Bytes of one point record on the wire."""
+        return self.header.point_record_length
+
+    def reads_records(self) -> bool:
+        """Whether :meth:`read_records_into` applies: an uncompressed LAS
+        file opened from a path."""
+        return self._records is not None and self._file is not None
+
+    def record_plan(self, schema: PointSchema) -> Optional[dict]:
+        """How ``schema``'s members come straight out of the wire record,
+        for a decode elsewhere (the card): ``{"position": (wire offset,
+        target member) or None, "fields": [(wire offset, target member)],
+        "zero": [target members]}``, each pass-through field of the wire's
+        own dtype.  ``None`` where a member needs more than that: a flag
+        fan-out, a dtype conversion, a position that is not Vec3f64 or
+        Vec3f32 (what the fused converting read refuses besides)."""
+        plan = self._fused_plan(schema)
+        if plan is None or any(plan["want_flags"]):
+            return None
+        position = None
+        if plan["pos_target"] is not None:
+            offset = next(m.offset for m in self._exact_schema.members
+                          if m.name == "LASLocalPosition")
+            position = (offset, plan["pos_target"])
+        return {"position": position,
+                "fields": [(f[0], m) for f, m in zip(plan["fields"],
+                                                     plan["field_targets"])],
+                "zero": list(plan["zero"])}
+
+    def read_records_into(self, dst, lo: int, n: int) -> int:
+        """Copy the wire bytes of records ``[lo, lo + n)`` from the file
+        straight into ``dst`` (a writable buffer of at least ``n *
+        record_size`` bytes) by ``os.preadv``: no mapping walked, no
+        decode, the interpreter lock released while the bytes move.  The
+        cursor stays where it is, so several threads may read ranges of
+        one reader at once.  Returns the bytes copied."""
+        if not self.reads_records():
+            raise ValueError("raw record reads need an uncompressed LAS "
+                             "file opened from a path")
+        if lo < 0 or n < 0 or lo + n > self.header.point_count:
+            raise ValueError(f"records [{lo}, {lo + n}) out of "
+                             f"[0, {self.header.point_count})")
+        size = n * self.record_size
+        view = memoryview(dst).cast("B")
+        if len(view) < size:
+            raise ValueError(f"buffer of {len(view)} bytes < {size}")
+        view = view[:size]
+        at = self.header.offset_to_point_data + lo * self.record_size
+        fd, got = self._file.fileno(), 0
+        while got < size:
+            k = os.preadv(fd, [view[got:]], at + got)
+            if k <= 0:
+                raise EOFError(f"file ends {size - got} bytes short of "
+                               f"record {lo + n}")
+            got += k
+        return got
+
     # ---- SeekToPoint ----------------------------------------------------------
     def seek_point(self, index: int) -> int:
         """Point-granular seek (reference raw_readers.rs:394-416)."""

@@ -9,6 +9,7 @@ from .fused_transform import (  # noqa: F401
     fused_voxel_head_exact_local, fused_world_bounds)
 from .icp_step_kernel import (  # noqa: F401
     icp_correspond_accumulate, icp_iterate, icp_solve_update)
+from .las_decode_kernel import las_records_decode  # noqa: F401
 from .tile_sort_kernel import supports_tile_sort, tile_sort  # noqa: F401
 from .voxel_reduce_kernel import fused_sorted_voxel_reduce  # noqa: F401
 from .window_fit_kernel import (  # noqa: F401
@@ -17,9 +18,11 @@ from .window_fit_kernel import (  # noqa: F401
 
 def _kernel_modules():
     from . import (compact_kernel, fused_transform, icp_step_kernel,
-                   tile_sort_kernel, voxel_reduce_kernel, window_fit_kernel)
+                   las_decode_kernel, tile_sort_kernel, voxel_reduce_kernel,
+                   window_fit_kernel)
     return (compact_kernel, fused_transform, icp_step_kernel,
-            tile_sort_kernel, voxel_reduce_kernel, window_fit_kernel)
+            las_decode_kernel, tile_sort_kernel, voxel_reduce_kernel,
+            window_fit_kernel)
 
 
 def launch_counts() -> dict:

@@ -25,7 +25,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 __all__ = ["library", "build_all", "check", "stream", "SOURCES", "P", "I", "F",
-           "D"]
+           "D", "L"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -38,6 +38,7 @@ P = ctypes.c_void_p   # every pointer and the stream
 I = ctypes.c_int
 F = ctypes.c_float
 D = ctypes.c_double
+L = ctypes.c_longlong
 
 #: source stem -> {C function: argtypes}
 SOURCES: Dict[str, Dict[str, Sequence]] = {
@@ -88,6 +89,12 @@ SOURCES: Dict[str, Dict[str, Sequence]] = {
         # nin, stream
         "icp_iterate_launch": (P, P, I, P, P, P, I, P, F, I, D, P, I, I, I,
                                P, P, P),
+    },
+    "las_decode": {
+        # rec, n, record_size, row0, sx, sy, sz, ox, oy, oz, pos_offset,
+        # pos_kind, pos, n_fields, f_out[], f_meta[], stream
+        "las_decode_launch": (P, L, I, L, D, D, D, D, D, D, I, I, P, I, P, P,
+                              P),
     },
 }
 

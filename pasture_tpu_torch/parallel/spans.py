@@ -2,8 +2,14 @@
 
 The phases of ``sharded_read_all`` and ``sharded_voxel_downsample_merged``:
 
-* ``read`` — the host decode of this rank's rows, on the host clock;
-* ``upload`` — the rows onto the rank's device;
+* ``read`` — on the host clock: every file's header and the rank's row
+  plan, and on the host path (``ingest.py``) the host decode of the rank's
+  rows;
+* ``upload`` — the rows onto the rank's device: on the record path the
+  whole pipeline, file -> pinned staging -> device -> K9's decode, from
+  before the first file read to after the last decode; on the host path
+  ``PointBatch.from_host``.  ``read`` and ``upload`` together cover the
+  whole ingest, without overlap;
 * ``voxelize`` — stage 1, the rank's own voxelization;
 * ``gather`` — the all-gather of every rank's voxel statistics;
 * ``merge`` — the exact merge of the gathered statistics.

@@ -287,6 +287,9 @@ def test_rehearsal_of_the_card_phase_gates(world):
     g = chip_smoke.gate_distributed(ranks_out, refs, cfg)
     assert g["quantized_max_err"] == 0.0
     assert g["normals_within_6deg"] >= 0.99
+    # the record read: every row of every rank through the record path
+    assert all(r["read_records"]["equal"] and r["read_records"]["on_card"]
+               == r["read_records"]["rows"] > 0 for r in ranks_out)
     line = chip_smoke.world_line(ranks_out, "rehearsal", g, "cpu")
     assert set(line["seconds"]) == set(port[0]["rehearsal"]["launches"])
     assert line["staged_bytes"]["morton_partition_halo"] == 0
